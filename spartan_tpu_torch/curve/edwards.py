@@ -1,0 +1,125 @@
+"""Batched twisted-Edwards point arithmetic (extended coordinates,
+a = -1) in plain PyTorch.
+
+A point batch is a ``PointArray`` of four ``(..., 8)`` int32 coordinate
+tensors (storage layout, canonical mod p), as the JAX package's
+``PointArray`` holds four ``(..., 16)`` uint32 arrays.  ``add16`` /
+``double16`` work on the compute layout (tuples of four ``(..., 16)``
+int64 lazy coordinates) so that chains of point operations unpack once;
+they are the formulas of the device kernels in ``csrc/fp25519.cuh``
+(add-2008-hwcd-3 and dbl-2008-hwcd).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core import edwards as host_ed
+from ..ff import fp25519 as fp
+from ..ff import limb
+
+
+class PointArray(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    t: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.x.shape[:-1]
+
+
+def stack(p: PointArray) -> torch.Tensor:
+    """PointArray (...,) -> (..., 4, 8) int32 (the kernels' layout)."""
+    return torch.stack(list(p), dim=-2).contiguous()
+
+
+def unstack(s: torch.Tensor) -> PointArray:
+    return PointArray(*(s[..., k, :] for k in range(4)))
+
+
+_D2 = host_ed.D2
+
+
+def identity(shape=(), device=None) -> PointArray:
+    zero = torch.zeros((*shape, limb.NWORDS), dtype=torch.int32,
+                       device=device)
+    one = zero.clone()
+    one[..., 0] = 1
+    return PointArray(zero, one, one.clone(), zero.clone())
+
+
+# ---------------------------------------------------------------------------
+# Compute layout: tuples of four (..., 16) int64 lazy coordinates
+# ---------------------------------------------------------------------------
+
+def add16(p, q):
+    """Unified addition (add-2008-hwcd-3); valid for all inputs,
+    doubling and the identity included."""
+    x1, y1, z1, t1 = p
+    x2, y2, z2, t2 = q
+    d2 = limb.const16(_D2, x1.device)
+    a = fp.mul16(fp.sub16(y1, x1), fp.sub16(y2, x2))
+    b = fp.mul16(fp.add16(y1, x1), fp.add16(y2, x2))
+    c = fp.mul16(fp.mul16(t1, d2), t2)
+    d = fp.dbl16(fp.mul16(z1, z2))
+    e = fp.sub16(b, a)
+    f = fp.sub16(d, c)
+    g = fp.add16(d, c)
+    h = fp.add16(b, a)
+    return (fp.mul16(e, f), fp.mul16(g, h), fp.mul16(f, g), fp.mul16(e, h))
+
+
+def double16(p):
+    """dbl-2008-hwcd with a = -1."""
+    x, y, z, _ = p
+    a = fp.mul16(x, x)
+    b = fp.mul16(y, y)
+    c = fp.dbl16(fp.mul16(z, z))
+    d = fp.sub16(torch.zeros_like(a), a)
+    u = fp.add16(x, y)
+    e = fp.sub16(fp.sub16(fp.mul16(u, u), a), b)
+    g = fp.add16(d, b)
+    f = fp.sub16(g, c)
+    h = fp.sub16(d, b)
+    return (fp.mul16(e, f), fp.mul16(g, h), fp.mul16(f, g), fp.mul16(e, h))
+
+
+def unpack(p: PointArray):
+    return tuple(limb.unpack(c) for c in p)
+
+
+def pack(p16) -> PointArray:
+    return PointArray(*(limb.pack(fp.canonical16(c)) for c in p16))
+
+
+# ---------------------------------------------------------------------------
+# Storage layout: canonical in, canonical out
+# ---------------------------------------------------------------------------
+
+def add(p: PointArray, q: PointArray) -> PointArray:
+    return pack(add16(unpack(p), unpack(q)))
+
+
+def double(p: PointArray) -> PointArray:
+    return pack(double16(unpack(p)))
+
+
+# ---------------------------------------------------------------------------
+# Host boundary
+# ---------------------------------------------------------------------------
+
+def from_host(points: list[host_ed.Point], device=None) -> PointArray:
+    def coord(attr):
+        return limb.ints_to_limbs([getattr(pt, attr) for pt in points],
+                                  device)
+
+    return PointArray(coord("X"), coord("Y"), coord("Z"), coord("T"))
+
+
+def to_host(p: PointArray) -> list[host_ed.Point]:
+    cols = [limb.limbs_to_ints(c) for c in p]
+    return [host_ed.Point(x, y, z, t) for x, y, z, t in zip(*cols)]

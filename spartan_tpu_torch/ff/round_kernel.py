@@ -1,0 +1,136 @@
+"""Kernel B2, the fused sum-check round.
+
+``fold_evals`` launches the CUDA kernel (``csrc/fold_evals.cu``) for
+tensors on the card and runs ``fold_evals_plain`` for tensors on the
+CPU; there is no fallback from one to the other.  It replaces the TPU
+kernel ``spartan_tpu/ff/pallas_kernels.py:211`` (``_fold_evals_kernel``,
+wrapped by ``fold_evals_pairs``/``fold_evals``), whose dataflow is the
+JAX prover's round step (``protocols/sumcheck.py::_fold_then_evals``).
+
+``tables`` are 2 (quad comb A*B) or 4 (cubic comb A*(B*C - D)) ``(n, 8)``
+int32 Montgomery tables of one power-of-two size.  Modes:
+
+* ``"evals"``: round 0 — evals of the round polynomial over the tables;
+* ``"fold_evals"``: bind the top variable to ``r`` (F[j] = T[j] +
+  r*(T[j+n/2] - T[j])), then the evals over the folded tables;
+* ``"fold"``: the last round's fold only.
+
+Returns ``(tables_out, evals)``: the folded tables (the inputs in
+``"evals"`` mode) and a ``(3, 8)`` Montgomery tensor of the evals at
+X = 0, 2, 3 (X = 3 is zero for the quad comb; ``None`` in ``"fold"``
+mode).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..core.field import Q
+from ..protocols import _combs
+from . import fq, limb
+
+MODES = {"evals": 0, "fold_evals": 1, "fold": 2}
+BLOCK = 256  # threads per block of the CUDA kernel
+_WHICH = {2: "quad", 4: "cubic"}
+
+
+class _FqArg(ctypes.Structure):
+    _fields_ = [("v", ctypes.c_uint32 * 8)]
+
+
+def _declare(lib) -> None:
+    p = ctypes.c_void_p
+    lib.fold_evals_launch.argtypes = (
+        [p] * 8 + [ctypes.c_int, ctypes.c_long, ctypes.c_int, _FqArg,
+                   p, p, p])
+    lib.fold_evals_launch.restype = ctypes.c_int
+
+
+def fold_evals_plain(tables, r: int | None, mode: str):
+    """The plain PyTorch version of the kernel (same outputs).  Its calls
+    on CUDA tensors are counted in ``cuda_calls``: the main path makes
+    none."""
+    if tables[0].is_cuda:
+        fold_evals_plain.cuda_calls += 1
+    T = [limb.unpack(t) for t in tables]
+    out = list(tables)
+    if mode != "evals":
+        rm = limb.unpack(fq.mont_limbs(r, tables[0].device))
+        m = T[0].shape[0] // 2
+        T = [fq.add16(t[:m], fq.mul16(rm, fq.sub16(t[m:], t[:m])))
+             for t in T]
+        out = [limb.pack(t) for t in T]
+        if mode == "fold":
+            return out, None
+    es = _combs.evals16(_WHICH[len(T)], T)
+    es += [torch.zeros_like(es[0])] * (3 - len(es))
+    return out, limb.pack(torch.stack(es))
+
+
+fold_evals_plain.cuda_calls = 0
+
+
+def _check(tables, r, mode: str) -> int:
+    if mode not in MODES:
+        raise ValueError(f"fold_evals: unknown mode {mode!r}")
+    if (r is None) != (mode == "evals"):
+        raise ValueError(f"fold_evals: mode {mode!r} takes "
+                         f"{'no' if mode == 'evals' else 'a'} challenge")
+    if len(tables) not in (2, 4):
+        raise ValueError(f"fold_evals: 2 or 4 tables, got {len(tables)}")
+    n = tables[0].shape[0]
+    for t in tables:
+        if (t.shape != (n, limb.NWORDS) or t.dtype != torch.int32
+                or t.device != tables[0].device):
+            raise ValueError("fold_evals: tables must be (n, 8) int32 of "
+                             "one size on one device")
+    least = 4 if mode == "fold_evals" else 2
+    if n < least or n & (n - 1):
+        raise ValueError(f"fold_evals: mode {mode!r} needs a power-of-two "
+                         f"size >= {least}, got {n}")
+    return n
+
+
+def fold_evals(tables, r: int | None, mode: str):
+    """Kernel B2 on the card, its plain version on the CPU."""
+    n = _check(tables, r, mode)
+    dev = tables[0].device
+    if dev.type == "cpu":
+        return fold_evals_plain(tables, r, mode)
+    if dev.type != "cuda":
+        raise ValueError(f"fold_evals: unsupported device {dev}")
+    lib = _build.load("fold_evals", _declare)
+    ins = [t.contiguous() for t in tables]
+    outs = ([torch.empty((n // 2, limb.NWORDS), dtype=torch.int32,
+                         device=dev) for _ in ins]
+            if mode != "evals" else [])
+    threads = n // 4 if mode == "fold_evals" else n // 2
+    nblocks = -(-threads // BLOCK)
+    partial = evals = None
+    if mode != "fold":
+        partial = torch.empty((nblocks, 3, limb.NWORDS), dtype=torch.int32,
+                              device=dev)
+        evals = torch.empty((3, limb.NWORDS), dtype=torch.int32, device=dev)
+    rarg = _FqArg()
+    if r is not None:
+        rm = (r % Q) * fq.R % Q
+        for k in range(8):
+            rarg.v[k] = (rm >> (32 * k)) & 0xFFFFFFFF
+
+    def ptrs(ts):
+        return [t.data_ptr() for t in ts] + [None] * (4 - len(ts))
+
+    rc = lib.fold_evals_launch(
+        *ptrs(ins), *ptrs(outs), len(ins), n, MODES[mode], rarg,
+        partial.data_ptr() if partial is not None else None,
+        evals.data_ptr() if evals is not None else None,
+        _build.stream_handle(dev))
+    fold_evals.launches += 1
+    _build.check(rc, "fold_evals")
+    return (outs if mode != "evals" else ins), evals
+
+
+fold_evals.launches = 0

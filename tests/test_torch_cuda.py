@@ -1,0 +1,99 @@
+"""Each CUDA kernel against its plain PyTorch version, on the card.
+
+Marked ``cuda``: they need an NVIDIA card with ``nvcc`` (the kernels are
+built from ``spartan_tpu_torch/csrc`` at first use) and skip without
+one.  This file imports nothing of JAX, so it also runs where JAX is not
+installed; ``--noconftest`` then skips ``tests/conftest.py``, which
+configures JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Everything is integer arithmetic: the kernel and the plain version agree
+bit for bit (tolerance zero).  Shapes are those of ``chip_smoke.py``.
+"""
+
+import pytest
+import torch
+
+from spartan_tpu_torch.commitments import MultiCommitGens
+from spartan_tpu_torch.core.field import Q
+from spartan_tpu_torch.curve import row_msm as rm
+from spartan_tpu_torch.ff import limb
+from spartan_tpu_torch.ff import round_kernel as rk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _elems(n, seed, device):
+    """(n, 8) values below 2^252 (< q), with 0, 1 and q - 1 first."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randint(-(1 << 31), 1 << 31, (n, 8), generator=g,
+                      dtype=torch.int64).to(torch.int32)
+    w[:, 7] &= 0x0FFFFFFF
+    k = min(n, 3)
+    w[:k] = limb.ints_to_limbs([0, 1, Q - 1][:k])
+    return w.to(device)
+
+
+@pytest.mark.parametrize("L,R", [(4, 16), (3, 20), (2, 24), (1024, 1),
+                                 (1024, 1024)])
+def test_row_msm_kernel_vs_plain(dev, L, R):
+    tab = MultiCommitGens(R, b"cuda_test").msm_table(dev)
+    s = _elems(L * R, L + R, dev).reshape(L, R, 8)
+    before = rm.row_msm.launches
+    got = rm.row_msm(s, tab)
+    torch.cuda.synchronize()
+    assert rm.row_msm.launches == before + 1
+    assert torch.equal(got, rm.row_msm_plain(s, tab))
+
+
+@pytest.mark.parametrize("ntab,n", [(4, 8), (4, 64), (4, 4096), (4, 1 << 20),
+                                    (2, 8), (2, 256), (2, 1 << 21)])
+@pytest.mark.parametrize("mode", ["evals", "fold_evals", "fold"])
+def test_fold_evals_kernel_vs_plain(dev, ntab, n, mode):
+    tabs = [_elems(n, 10 * n + t, dev) for t in range(ntab)]
+    r = None if mode == "evals" else 987654321
+    got_t, got_e = rk.fold_evals(tabs, r, mode)
+    want_t, want_e = rk.fold_evals_plain(tabs, r, mode)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got_t, want_t))
+    if mode == "fold":
+        assert got_e is None and want_e is None
+    else:
+        assert torch.equal(got_e, want_e)
+
+
+@pytest.mark.parametrize("ntab", [4, 2])
+def test_fold_evals_kernel_two_round_chain(dev, ntab):
+    tabs = [_elems(4096, 7 + t, dev) for t in range(ntab)]
+    got, want = tabs, tabs
+    for mode, r in (("fold_evals", 11), ("fold_evals", Q - 1), ("fold", 5)):
+        got, ge = rk.fold_evals(got, r, mode)
+        want, we = rk.fold_evals_plain(want, r, mode)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        if mode != "fold":
+            assert torch.equal(ge, we)
+
+
+def test_golden_nizk_on_the_card(dev):
+    import os
+
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import NIZK, Instance, NIZKGens
+    from spartan_tpu_torch.core.merlin import Transcript
+
+    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
+        16, 16, 2, seed=424242, device=dev)
+    nizk = NIZK.prove(inst, vars_a, inputs_a, NIZKGens(16, 16, 2),
+                      Transcript(b"golden_nizk"), _tape_seed=31337)
+    golden = os.path.join(os.path.dirname(__file__), "golden",
+                          "nizk_proof.bin")
+    with open(golden, "rb") as f:
+        assert ser.nizk_to_bytes(nizk) == f.read()

@@ -1,0 +1,159 @@
+"""The port's curve layer and the plain version of kernel B1 (row-MSM)
+against the JAX package.
+
+* The lazy mod-p ops and the unified point addition against the TPU
+  kernel's own ``_FpLazy`` and ``_padd`` (``curve/pallas_msm.py``), run
+  eagerly with ``_roll`` patched to ``jnp.roll`` as the JAX package's
+  ``tests/test_pallas_msm.py`` does.
+* ``row_msm_plain`` against ``spartan_tpu.core.edwards.msm`` at the
+  shapes of ``tests/test_pallas_msm.py`` (tiny, R not a power of two,
+  more lanes, R = 1), with the generators carried across from the JAX
+  package's ``MultiCommitGens.device_G`` through ``interop``.
+
+Everything is exact: residues and ristretto encodings compare equal.
+"""
+
+import hashlib
+import random
+
+import jax  # noqa: F401
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spartan_tpu import commitments as jcom
+from spartan_tpu.core import edwards as jed
+from spartan_tpu.core import ristretto as jri
+from spartan_tpu.core.field import P25519 as P
+from spartan_tpu.core.field import Q
+from spartan_tpu.curve import pallas_msm as pm
+from spartan_tpu_torch import commitments, interop
+from spartan_tpu_torch.curve import edwards as ed
+from spartan_tpu_torch.curve import msm as dmsm
+from spartan_tpu_torch.curve import ristretto as dri
+from spartan_tpu_torch.curve import row_msm as rm
+from spartan_tpu_torch.ff import fp25519 as fp
+from spartan_tpu_torch.ff import limb
+
+M = (1 << 256) - 1
+
+
+def _blocks(vals):
+    """python ints -> the Pallas kernel's (H, W) 16-bit-limb block."""
+    a = np.zeros((pm.H, len(vals)), np.uint32)
+    for w, v in enumerate(vals):
+        for i in range(16):
+            a[i, w] = (v >> (16 * i)) & 0xFFFF
+    return jnp.asarray(a)
+
+
+def _block_ints(arr):
+    a = np.asarray(arr)
+    return [sum(int(a[i, w]) << (16 * i) for i in range(16))
+            for w in range(a.shape[1])]
+
+
+@pytest.fixture
+def fplazy(monkeypatch):
+    monkeypatch.setattr(pm, "_roll", lambda x, k, axis: jnp.roll(x, k, axis))
+    return pm._FpLazy(jnp.asarray(pm._CONSTS))
+
+
+def test_lazy_ops_match_tpu_kernel_fplazy(fplazy):
+    rng = random.Random(21)
+    A = [M, 0, P, 1] + [rng.randrange(1 << 256) for _ in range(4)]
+    B = [M, M, P - 1, 0] + [rng.randrange(1 << 256) for _ in range(4)]
+    a16, b16 = limb.from_int16(A), limb.from_int16(B)
+    ja, jb = _blocks(A), _blocks(B)
+    for ours, theirs in ((fp.mul16, fplazy.mul), (fp.add16, fplazy.add),
+                         (fp.sub16, fplazy.sub)):
+        got = [v % P for v in limb.to_int16(ours(a16, b16))]
+        want = [v % P for v in _block_ints(theirs(ja, jb))]
+        assert got == want
+
+
+def _points(n, tag=b"t"):
+    return [jri.from_uniform_bytes(hashlib.sha512(tag + bytes([i])).digest())
+            for i in range(n)]
+
+
+def test_point_add_matches_tpu_kernel_padd(fplazy):
+    """Same formula (add-2008-hwcd-3), so the same coordinates mod p."""
+    p1, p2 = _points(3, b"a"), _points(3, b"b")
+    p2[2] = p1[2]  # a doubling through the unified formula
+
+    def blocks(pts):
+        return tuple(_blocks([getattr(p, c) for p in pts]) for c in "XYZT")
+
+    want = [[v % P for v in _block_ints(c)]
+            for c in pm._padd(fplazy, blocks(p1), blocks(p2))]
+    got = ed.add(ed.from_host(p1), ed.from_host(p2))
+    assert [fp.decode_to_ints(c) for c in got] == want
+    for w, q in enumerate(ed.to_host(got)):
+        assert jri.encode(q) == jri.encode(p1[w].add(p2[w]))
+
+
+def test_double_matches_host():
+    pts = _points(4) + [jed.Point.identity()]
+    d = ed.to_host(ed.double(ed.from_host(pts)))
+    for p, dp in zip(pts, d):
+        assert jri.encode(dp) == jri.encode(p.double())
+
+
+def test_gens_match_jax_package():
+    ours = commitments.MultiCommitGens(8, b"gens_test")
+    theirs = jcom.MultiCommitGens(8, b"gens_test")
+    assert [jri.encode(g) for g in ours.G + [ours.h]] == [
+        jri.encode(g) for g in theirs.G + [theirs.h]]
+
+
+def test_multiples_table():
+    pts = _points(5)
+    tab = commitments.build_table(ed.from_host(pts))
+    assert tab.shape == (16, 5, 4, 8)
+    for d in range(16):
+        got = ed.to_host(ed.unstack(tab[d]))
+        for p, g in zip(pts, got):
+            assert jri.encode(g) == jri.encode(p.mul(d))
+
+
+@pytest.mark.parametrize("L,R", [(4, 16), (3, 20), (2, 24), (4, 1)])
+def test_row_msm_plain_vs_host_msm(L, R):
+    rng = random.Random(L * 100 + R)
+    gens = jcom.MultiCommitGens(R, b"row_msm_test")
+    dG = gens.device_G  # the JAX package's device generators
+    pts = interop.points_from_jax(*(np.asarray(c) for c in dG))
+    ks = ([0, 1, 2, 15, 16, Q - 1]
+          + [rng.randrange(Q) for _ in range(L * R)])[:L * R]
+    s = limb.ints_to_limbs(ks).reshape(L, R, 8)
+    out = rm.row_msm(s, commitments.build_table(pts))
+    assert out.shape == (L, 4, 8)
+    got = dri.compress_to_bytes(ed.unstack(out))
+    for l in range(L):
+        want = jed.msm(ks[l * R:(l + 1) * R], gens.G)
+        assert got[l] == jri.encode(want)
+
+
+def test_row_msm_checks_inputs():
+    tab = commitments.build_table(ed.from_host(_points(2)))
+    with pytest.raises(ValueError):
+        rm.row_msm(torch.zeros((1, 3, 8), dtype=torch.int32), tab)
+    with pytest.raises(ValueError):
+        rm.row_msm(torch.zeros((1, 2, 8), dtype=torch.int64), tab)
+
+
+def test_msm_and_vmsm():
+    rng = random.Random(31)
+    pts = _points(6)
+    ks = [rng.randrange(Q) for _ in pts]
+    want = jri.encode(jed.msm(ks, pts))
+    got = dmsm.msm(limb.ints_to_limbs(ks), pts)
+    assert dri.compress_to_bytes(got)[0] == want
+    assert jri.encode(dmsm.vmsm(ks, pts, "cpu")) == want
+
+
+def test_compress_matches_host_encode():
+    pts = _points(5) + [jed.Point.identity()]
+    blobs = dri.compress_to_bytes(ed.from_host(pts))
+    assert blobs == [jri.encode(p) for p in pts]
