@@ -7,9 +7,11 @@
 // (row, window), then a Horner combine over the 64 windows.
 //
 // Bound on this card: operations.  At L = R = 1024 the window sums are
-// 64 * L * R = 67M unified point adds of 9 field products each (~1,400
-// 32-bit multiply-adds per add); the bytes (scalars 32 MB, table 2 MB,
-// output 128 kB) take ~10 us at 3.35 TB/s.
+// 64 * L * R = 67M point adds.  With a table in the precomputed form
+// (y+x, y-x, 2d*x*y, Z = 1) each is a mixed add of 7 field products
+// (~1,000 32-bit multiply-adds); this table keeps extended (X, Y, Z, T)
+// points, so each add here is a unified add of 9.  The bytes (scalars
+// 32 MB, table 2 MB, output 128 kB) take ~10 us at 3.35 TB/s.
 //
 // Design (simple and exact, not yet fast): one thread per (row, window)
 // walks the R generators in order, looks up its digit's table entry

@@ -1,11 +1,12 @@
 """Loader for the native host-crypto library (host_crypto.cpp).
 
-Builds on first use with g++ (-O3 -shared -fPIC) into the port's build
-directory (``build/`` beside the package, see ``_build.py``), keyed by a
-source hash, so edits recompile automatically and repeated imports are
-instant.  If no compiler is available, everything falls back to the
-pure-Python implementations in ``core`` — set SPARTAN_TPU_NATIVE=0 to
-force the fallback.
+Builds on first use with g++ (-O3 -march=native -shared -fPIC) into the
+port's build directory (``build/`` beside the package, see ``_build.py``),
+keyed by a hash of the source and of the host CPU, so edits recompile
+automatically, a copy of the checkout on another machine builds its own
+library, and repeated imports are instant.  If no compiler is available,
+everything falls back to the pure-Python implementations in ``core`` —
+set SPARTAN_TPU_NATIVE=0 to force the fallback.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -22,10 +24,25 @@ _lib = None
 _tried = False
 
 
+def _cpu_id() -> bytes:
+    """The machine and its CPU's feature flags: what -march=native
+    compiles for."""
+    flags = b""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith((b"flags", b"Features")):
+                    flags = line
+                    break
+    except OSError:
+        pass
+    return platform.machine().encode() + b"\0" + flags
+
+
 def _build_and_load() -> ctypes.CDLL | None:
     with open(_SRC, "rb") as f:
         src = f.read()
-    tag = hashlib.sha256(src).hexdigest()[:16]
+    tag = hashlib.sha256(src + b"\0" + _cpu_id()).hexdigest()[:16]
     from .._build import build_dir
 
     cache_dir = os.environ.get("SPARTAN_TPU_NATIVE_CACHE", build_dir())
