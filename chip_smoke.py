@@ -6,13 +6,22 @@ and check it end to end.
 
 In order: the card's name and power limit; both CUDA kernels built from
 ``spartan_tpu_torch/csrc`` with ``-Xptxas -v`` (registers and spills
-printed); each kernel held bit for bit against its plain PyTorch version
-on the card, at small shapes and at the shapes the NIZK path gives it;
-the golden NIZK at (16, 16, 2) equal to ``tests/golden/nizk_proof.bin``
-and its digest to ``tests/golden/instance_digest.bin``; a NIZK at
+printed per entry function); each kernel held bit for bit against its
+plain PyTorch version on the card, at small shapes, at the shapes the
+NIZK path gives it and at the one-row (1, 4096) of ``vmsm``; B1's window
+and combine stages timed apart, and its bound counted on the run's
+scalars (non-zero digits only); B2's three modes at (4, 2^20) timed in
+a CUDA graph and launched one by one; B2 along the two whole round chains of
+a 2^20 prove (21 cubic launches from 4 x 2^20, 22 quad launches from
+2 x 2^21), checked against the plain version round by round and timed,
+with the per-prove total beside the summed bound; the golden NIZK at
+(16, 16, 2) equal to ``tests/golden/nizk_proof.bin`` and its digest to
+``tests/golden/instance_digest.bin``; a NIZK at
 2^20 constraints and variables with 10 inputs proved, verified and a
 tampered copy rejected, with every launch counter reset just before and
-read just after.  It ends with a JSON line per kernel, the card's line
+read just after and the prove's cudaMalloc calls counted; one more 2^20
+witness commitment under ``torch.profiler`` (its kernels' device time).
+It ends with a JSON line per kernel, the card's line
 from nvidia-smi and ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero; with no card it exits 2 before printing any
 result.  All inputs are made from fixed seeds.
@@ -70,6 +79,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn``'s launches captured in a CUDA graph and
+    replayed ``reps`` times: the launches back to back, without the host's
+    gaps between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
 def max_abs_err(a, b) -> int:
     """Largest absolute difference of the int32 words (0 when equal)."""
     return int((a.long() - b.long()).abs().max())
@@ -91,7 +117,8 @@ def build_kernels() -> None:
             log(f"built {name} in {secs:.1f} s: "
                 f"{os.path.relpath(path, REPO)}")
             for line in report.splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "entry function" in line):
                     log(f"  ptxas {name}: {line.strip()}")
 
 
@@ -117,11 +144,15 @@ def with_edges(t, edges):
 # the shapes each kernel is checked at; the last ones are the main
 # path's (the witness rows at 2^20; phase one's tables at 2^20, phase
 # two's at 2^21)
-MSM_SHAPES = [(4, 16), (3, 20), (2, 24), (1024, 1), (1024, 1024)]
+MSM_SHAPES = [(4, 16), (3, 20), (2, 24), (1024, 1), (1024, 1024), (1, 4096)]
 ROUND_CASES = [(4, 8), (4, 64), (4, 4096), (2, 8), (2, 256), (4, 1 << 20),
                (2, 1 << 21)]
 MSM_TIMED = (1024, 1024)
+# B1's launches in a 2^20 prove: the witness rows and the blinds times h
+MSM_PER_PROVE = [(1024, 1024), (1024, 1)]
 ROUND_TIMED = (4, 1 << 20, "fold_evals")
+# B2's round chains in a 2^20 prove: (tables, log2 of the first size)
+ROUND_CHAINS = [(4, LOG_N), (2, LOG_N + 1)]
 
 
 def check_row_msm(dev, gen, shapes) -> dict:
@@ -132,7 +163,7 @@ def check_row_msm(dev, gen, shapes) -> dict:
     from spartan_tpu_torch.core.field import Q
     from spartan_tpu_torch.curve import row_msm as rm
 
-    result = {}
+    result, per_prove = {}, {}
     for L, R in shapes:
         gens = MultiCommitGens(R, b"chip_smoke")
         tab = gens.msm_table(dev)
@@ -150,24 +181,100 @@ def check_row_msm(dev, gen, shapes) -> dict:
         if err != 0:
             raise AssertionError(f"row_msm differs from its plain version "
                                  f"at ({L}, {R})")
+        if (L, R) in MSM_PER_PROVE:
+            per_prove[(L, R)] = (cuda_ms(lambda: rm.row_msm(s, tab), 3),
+                                 row_msm_bound(s)["bound_ms"])
         if (L, R) == MSM_TIMED:
-            ms = cuda_ms(lambda: rm.row_msm(s, tab), 3)
+            ms = per_prove[(L, R)][0]
+            win_ms, comb_ms = row_msm_stage_ms(s, tab, 3)
+            bound = row_msm_bound(s)
+            log(f"row_msm ({L}, {R}): {ms:.3f} ms = windows {win_ms:.3f} "
+                f"ms + combine {comb_ms:.3f} ms; bound "
+                f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; "
+                f"{bound['full_digits_bound_ms']:.3f} ms counting the "
+                f"zero digits)")
             result = dict(shape=[L, R], ms=ms, plain_ms=plain_ms,
-                          max_abs_err=err, **row_msm_bound(L, R))
+                          max_abs_err=err, windows_ms=win_ms,
+                          combine_ms=comb_ms, **bound)
+    result["ms_per_prove"] = sum(v[0] for v in per_prove.values())
+    result["bound_ms_per_prove"] = sum(v[1] for v in per_prove.values())
+    log(f"row_msm per 2^20 prove ({len(per_prove)} launches): "
+        f"{result['ms_per_prove']:.3f} ms, bound "
+        f"{result['bound_ms_per_prove']:.3f} ms")
     return result
 
 
-def row_msm_bound(L: int, R: int) -> dict:
-    """The least work for the same function, whatever the table format
-    the port uses: the window adds as mixed adds against a precomputed
-    (y+x, y-x, 2d*x*y) table with Z = 1 (7 field products, 96 B an
-    entry); the Horner adds as unified adds (9) and the doublings (8)."""
+def row_msm_stage_ms(scalars, tab, reps: int) -> tuple[float, float]:
+    """B1's window stage and combine stage, each timed on the device (mean
+    over ``reps`` runs of one whole MSM), through the kernel library's
+    timing entry ``row_msm_stage_ms``; the launches are not counted."""
+    import ctypes
+
+    import torch
+
+    from spartan_tpu_torch import _build
+    from spartan_tpu_torch.curve import row_msm as rm
+    from spartan_tpu_torch.ff import limb
+
+    lib = _build.load("row_msm", rm._declare)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.row_msm_stage_ms.argtypes = [p, p, p, p, i, i, i, p,
+                                     ctypes.POINTER(ctypes.c_float)]
+    lib.row_msm_stage_ms.restype = i
+    L, R = scalars.shape[:2]
+    S = rm.segments(L, R)
+    dev = scalars.device
+    part = torch.empty((L, S, rm.NWINDOWS, 4, limb.NWORDS),
+                       dtype=torch.int32, device=dev)
+    out = torch.empty((L, 4, limb.NWORDS), dtype=torch.int32, device=dev)
+    want = rm.row_msm(scalars, tab)
+    total = [0.0, 0.0]
+    for k in range(reps + 1):  # the first is a warm-up
+        ms = (ctypes.c_float * 2)()
+        _build.check(lib.row_msm_stage_ms(
+            scalars.data_ptr(), tab.data_ptr(), part.data_ptr(),
+            out.data_ptr(), L, R, S, _build.stream_handle(dev), ms),
+            "row_msm_stage_ms")
+        if k:
+            total = [total[0] + ms[0], total[1] + ms[1]]
+    if not torch.equal(out, want):
+        raise AssertionError("row_msm_stage_ms differs from row_msm")
+    return total[0] / reps, total[1] / reps
+
+
+def row_msm_bound(scalars) -> dict:
+    """The least work for the same function with 4-bit windows, counted
+    on these scalars: a mixed add against the precomputed (y+x, y-x,
+    2d*x*y) table with Z = 1 (7 field products, 96 B an entry) for each
+    non-zero digit; per row, from its top non-zero window down, 4
+    doublings (8 products each) a window and a unified add (9) for each
+    lower window that has a non-zero digit.  ``full_digits_bound_ms``
+    counts every digit and window (zero ones too), as PR 1's bound
+    did."""
+    import torch
+
+    from spartan_tpu_torch.curve import row_msm as rm
+
+    L, R = scalars.shape[:2]
+    nz = rm._digits(scalars) != 0  # (L, R, 64)
+    madds = int(nz.sum())
+    win = nz.any(dim=1)  # (L, 64): windows with a non-zero digit
+    w = torch.arange(rm.NWINDOWS, device=scalars.device)
+    top = torch.where(win, w, -1).max(dim=1).values  # (L,)
+    dbls = 4 * int(top.clamp(min=0).sum())
+    adds = int((win & (w < top[:, None])).sum())
     bytes_ = L * R * 32 + 16 * R * 96 + L * 128
-    wide = (64 * L * R * 7 + L * 63 * 9 + L * 63 * 4 * 8) * FP_MUL_WIDE
-    t_bytes = bytes_ / HBM_BYTES_S * 1e3
-    t_ops = wide * IMAD_PER_WIDE / IMAD_S * 1e3
+
+    def ms(madds, adds, dbls):
+        wide = (madds * 7 + adds * 9 + dbls * 8) * FP_MUL_WIDE
+        return (bytes_ / HBM_BYTES_S * 1e3,
+                wide * IMAD_PER_WIDE / IMAD_S * 1e3)
+
+    t_bytes, t_ops = ms(madds, adds, dbls)
     return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes > t_ops else "operations")
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                full_digits_bound_ms=max(ms(64 * L * R, 63 * L,
+                                            252 * L)))
 
 
 def fold_evals_bound(ntab: int, n: int, mode: str) -> dict:
@@ -216,11 +323,20 @@ def check_fold_evals(dev, gen, cases) -> dict:
                 raise AssertionError(
                     f"fold_evals differs from its plain version at ntab "
                     f"{ntab}, n {n}, mode {mode}")
+            if (ntab, n) == ROUND_TIMED[:2]:
+                # device time from a CUDA graph of 10 launches: launched
+                # one by one from Python, a launch of ~0.1 ms can wait on
+                # the host
+                ms = graph_ms(lambda: [rk.fold_evals(tabs, rr, mode)
+                                       for _ in range(10)], 5) / 10
+                eager = cuda_ms(lambda: rk.fold_evals(tabs, rr, mode), 20)
+                bound = fold_evals_bound(ntab, n, mode)
+                log(f"fold_evals ntab {ntab} n {n} {mode}: {ms:.4f} ms in a "
+                    f"CUDA graph ({eager:.4f} ms launched one by one), bound "
+                    f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
             if (ntab, n, mode) == ROUND_TIMED:
-                ms = cuda_ms(lambda: rk.fold_evals(tabs, rr, mode), 20)
-                result = dict(shape=[ntab, n, mode], ms=ms,
-                              plain_ms=plain_ms, max_abs_err=err,
-                              **fold_evals_bound(ntab, n, mode))
+                result = dict(shape=[ntab, n, mode], ms=ms, eager_ms=eager,
+                              plain_ms=plain_ms, max_abs_err=err, **bound)
         # a two-round chain: round 0 evals, then fold_evals twice, then
         # the last fold, each fed the previous outputs
         if n >= 16:
@@ -237,6 +353,123 @@ def check_fold_evals(dev, gen, cases) -> dict:
                                          f"ntab {ntab}, n {n}")
             log(f"fold_evals chain ntab {ntab} n {n}: max_abs_err 0")
     return result
+
+
+def round_chain(fold, tabs, rs):
+    """One sum-check phase's launches: evals, then fold_evals per round,
+    the last round a fold.  Returns every round's outputs."""
+    outs = [fold(tabs, None, "evals")]
+    for k, r in enumerate(rs):
+        mode = "fold_evals" if k + 1 < len(rs) else "fold"
+        outs.append(fold(outs[-1][0], r, mode))
+    return outs
+
+
+def round_chain_bound(ntab: int, log_n: int) -> float:
+    n = 1 << log_n
+    return (fold_evals_bound(ntab, n, "evals")["bound_ms"]
+            + sum(fold_evals_bound(ntab, n >> k, "fold_evals")["bound_ms"]
+                  for k in range(log_n - 1))
+            + fold_evals_bound(ntab, 2, "fold")["bound_ms"])
+
+
+def check_round_chains(dev, gen) -> dict:
+    """B2 along the whole round chains of a 2^20 prove: bit for bit
+    against the plain version after every round, then timed."""
+    from spartan_tpu_torch.core.field import Q
+    from spartan_tpu_torch.ff import round_kernel as rk
+
+    total_ms = total_eager = total_bound = 0.0
+    result = {}
+    for ntab, log_n in ROUND_CHAINS:
+        tabs = [rand_elems(gen, 1 << log_n, dev) for _ in range(ntab)]
+        rs = [(7 ** (k + 40)) % Q for k in range(log_n)]
+        got = round_chain(rk.fold_evals, tabs, rs)
+        want = round_chain(rk.fold_evals_plain, tabs, rs)
+        for k, ((gt, ge), (wt, we)) in enumerate(zip(got, want)):
+            err = max(max_abs_err(a, b) for a, b in zip(gt, wt))
+            if ge is not None or we is not None:
+                err = max(err, max_abs_err(ge, we))
+            if err != 0:
+                raise AssertionError(f"fold_evals chain ntab {ntab} from "
+                                     f"2^{log_n} differs at launch {k}")
+        del got, want
+        eager = cuda_ms(lambda: round_chain(rk.fold_evals, tabs, rs), 5)
+        ms = graph_ms(lambda: round_chain(rk.fold_evals, tabs, rs), 5)
+        bound = round_chain_bound(ntab, log_n)
+        log(f"fold_evals chain ntab {ntab} from 2^{log_n}: {log_n + 1} "
+            f"launches, max_abs_err 0, {ms:.3f} ms in a CUDA graph "
+            f"({eager:.3f} ms launched one by one), bound {bound:.3f} ms")
+        result[f"chain_{ntab}x2^{log_n}_ms"] = ms
+        total_ms += ms
+        total_eager += eager
+        total_bound += bound
+    log(f"fold_evals per 2^20 prove: {total_ms:.3f} ms in CUDA graphs "
+        f"({total_eager:.3f} ms launched one by one), bound "
+        f"{total_bound:.3f} ms")
+    result.update(ms_per_prove=total_ms, eager_ms_per_prove=total_eager,
+                  bound_ms_per_prove=total_bound)
+    return result
+
+
+def new_segments(mem0: dict) -> list[int]:
+    """cudaMalloc calls of the caching allocator since the memory stats
+    ``mem0``, and its retries (a retry frees the cache and synchronises)."""
+    import torch
+
+    mem = torch.cuda.memory_stats()
+    return [mem.get(k, 0) - mem0.get(k, 0)
+            for k in ("segment.all.allocated", "num_alloc_retries")]
+
+
+def commit_profile(dev, gens) -> dict:
+    """The 2^20 prove's witness commitment (``poly.commit.commit``, the
+    ``polycommit`` phase's device part) once more on random witness
+    values, under ``torch.profiler``: the wall of the call beside the
+    device time of each kernel in it, so that the spans
+    ``commit::msm_rows`` and ``commit::blinds`` can be read as kernel
+    time and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spartan_tpu_torch.poly import commit as pc
+
+    gens_pc = gens.gens_r1cs_sat.gens_pc
+    Z = rand_elems(torch.Generator().manual_seed(5), 1 << LOG_N, dev)
+    mem0 = torch.cuda.memory_stats()
+    pc.commit(Z, gens_pc, None)  # warm-up
+    torch.cuda.synchronize()
+    first_mallocs = new_segments(mem0)
+    mem0 = torch.cuda.memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pc.commit(Z, gens_pc, None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    mallocs = {"first_call": first_mallocs, "profiled": new_segments(mem0)}
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(v[1] for v in kernels.values())
+    if busy <= 0:  # the profiler could not trace the card: no breakdown
+        log(f"polycommit 2^{LOG_N} profiled: {wall_ms:.3f} ms wall, the "
+            f"profiler recorded no device activity")
+        return {"wall_ms": wall_ms, "device_ms": None,
+                "device_mallocs": mallocs}
+    log(f"polycommit 2^{LOG_N} profiled: {wall_ms:.3f} ms wall, "
+        f"{busy:.3f} ms device time in {sum(v[0] for v in kernels.values())}"
+        f" kernels; device allocations (cudaMalloc calls, retries): "
+        f"{mallocs}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    for name, (n, ms) in top[:8]:
+        log(f"  {ms:8.3f} ms  {n:5d} x  {name[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": busy, "device_mallocs": mallocs,
+            "row_msm_kernels_ms": sum(ms for name, (n, ms) in kernels.items()
+                                      if "msm_" in name)}
 
 
 def golden(dev) -> None:
@@ -286,6 +519,7 @@ def nizk_main_path(dev, log_n: int) -> dict:
     log(f"nizk 2^{log_n}: instance and gens built in {setup_s:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_stats()
     rm.row_msm.launches = rk.fold_evals.launches = 0
     rm.row_msm_plain.cuda_calls = rk.fold_evals_plain.cuda_calls = 0
     t0 = time.perf_counter()
@@ -297,6 +531,7 @@ def nizk_main_path(dev, log_n: int) -> dict:
                 "fold_evals": rk.fold_evals.launches}
     plain_calls = rm.row_msm_plain.cuda_calls + rk.fold_evals_plain.cuda_calls
     peak = torch.cuda.max_memory_allocated()
+    mallocs = new_segments(mem0)
     phases = {k: timer.records[k] for k in (
         "polycommit", "prove_sc_phase_one", "prove_sc_phase_two",
         "polyeval")}
@@ -321,8 +556,10 @@ def nizk_main_path(dev, log_n: int) -> dict:
         raise AssertionError("a tampered proof verified")
     summary = {"log_n": log_n, "num_inputs": n_inputs, "setup_s": setup_s,
                "prove_s": prove_s, "verify_s": verify_s, "phases_s": phases,
-               "peak_device_bytes": peak, "proof_bytes": len(blob),
+               "peak_device_bytes": peak, "device_mallocs": mallocs,
+               "proof_bytes": len(blob),
                "launches": launches}
+    summary["polycommit_profile"] = commit_profile(dev, gens)
     log("nizk " + json.dumps(summary))
     return summary
 
@@ -349,6 +586,7 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     msm = check_row_msm(dev, gen, MSM_SHAPES)
     fold = check_fold_evals(dev, gen, ROUND_CASES)
+    fold.update(check_round_chains(dev, gen))
     golden(dev)
     summary = nizk_main_path(dev, LOG_N)
     kernels = [

@@ -1,4 +1,4 @@
-// One fused sum-check round on the device.
+// One fused sum-check round on the device, in one launch.
 //
 // Replaces the TPU kernel spartan_tpu/ff/pallas_kernels.py:211
 // (_fold_evals_kernel, called from _fold_evals_call at :265), whose
@@ -13,18 +13,38 @@
 //
 // Bound on this card: bytes, barely.  The first phase-1 round reads
 // 4 x 2^20 x 32 B and writes 4 x 2^19 x 32 B (~201 MB, ~60 us at
-// 3.35 TB/s); its ~3.7M Montgomery products (136 32x32->64-bit
-// multiply-adds each) take about as long at the card's IMAD rate, so
-// the kernel has no slack on either side.
+// 3.35 TB/s); its ~3.7M Montgomery products take about as long at the
+// card's IMAD rate, so the kernel has no slack on either side.
 //
-// Design: thread j < m/2 reads T[j], T[j + m/2], T[m + j], T[m + j + m/2]
-// of each table (the TPU kernel's four input blocks per table), writes
-// F[j] and F[j + m/2], and forms the three comb values of its pair, so
-// every element is read once and the folded table is produced in the
-// order the next round reads it.  Blocks run in no order here, so the
-// TPU kernel's running sum in scratch memory becomes a per-block tree
-// sum mod q in shared memory plus a second one-block kernel that sums
-// the block partials.  The challenge r arrives in Montgomery form.
+// Design: a fixed grid of BLOCKS_PER_SM blocks of 128 threads per SM
+// (fewer when the round is small) strides over the pairs.  Per pair a
+// thread reads T[j], T[j + m/2], T[m + j], T[m + j + m/2] of each table,
+// writes F[j] and F[j + m/2] (the order the next round reads), and
+// builds the comb table by table (B, C, D, then A for the cubic comb) so
+// that only one table's values are live at a time; the __launch_bounds__
+// register cap (128) keeps 16 warps resident on every SM.  Each thread
+// sums its comb values unreduced in three 9-word accumulators.  At the
+// end, warp shuffles and one shared-memory step sum the block; each
+// block writes its partial, and the last block to finish (an atomic
+// ticket after __threadfence; the wrapper zeroes a ticket for each
+// launch, so launches on different streams never share one) sums the
+// partials and reduces them mod q once.  The sums are exact residues, so the result does not depend on
+// the order and equals fold_evals_plain bit for bit.  The field products
+// are the carry-chain CIOS of fq.cuh, run side by side where they are
+// independent (a table's two folds; the comb at X = 0, 2, 3), so that
+// each warp has more than one chain to issue from.  The challenge r
+// arrives in Montgomery form.
+//
+// It replaces a first design of one thread per pair at 162-188
+// registers (8 warps a SM), a shared-memory tree per block and a second
+// launch to sum the blocks: 0.395 ms at (4, 2^20, fold_evals) on an H100,
+// now ~0.12 ms.  There the fold-only mode runs at ~75% of its bytes
+// bound and the fused mode at ~49%: its products are issue-bound (more
+// chains side by side, or 8% fewer wide multiplies, did not move it).
+//
+// ptxas (sm_90a, CUDA 12.8, as chip_smoke.py prints it), registers:
+// 4 tables 128 (fold_evals; 12 bytes spilled), 120 (evals), 96 (fold);
+// 2 tables 114, 88, 62; no other spills.  Times: PERF.md section 6.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,7 +53,9 @@
 #define MODE_EVALS 0
 #define MODE_FOLD_EVALS 1
 #define MODE_FOLD 2
-#define BLOCK 256
+#define BLOCK 128
+#define BLOCKS_PER_SM 4
+#define NWARPS (BLOCK / 32)
 
 struct tables_t {
   const uint32_t* in[4];
@@ -44,167 +66,221 @@ struct fq_arg_t {
   uint32_t v[8];
 };
 
-template <int NTAB>
-static __device__ __forceinline__ void comb(uint32_t r[8],
-                                           const uint32_t (&x)[NTAB][8]) {
-  if constexpr (NTAB == 4) {  // A * (B * C - D)
-    uint32_t bc[8];
-    fq_mul(bc, x[1], x[2]);
-    fq_sub(bc, bc, x[NTAB - 1]);
-    fq_mul(r, x[0], bc);
-  } else {  // A * B
-    fq_mul(r, x[0], x[1]);
+// f[n] = a[n] + r * (b[n] - a[n]) for N independent folds, their
+// products side by side
+template <int N>
+static __device__ __forceinline__ void fold_n(uint32_t (*f)[8],
+                                              const uint32_t (*a)[8],
+                                              const uint32_t (*b)[8],
+                                              const fq_arg_t& r) {
+  uint32_t d[N][8], rr[N][8];
+#pragma unroll
+  for (int n = 0; n < N; n++) {
+    fq_sub(d[n], b[n], a[n]);
+#pragma unroll
+    for (int w = 0; w < 8; w++) rr[n][w] = r.v[w];
   }
+  fq_mul_n<N>(d, rr, d);
+#pragma unroll
+  for (int n = 0; n < N; n++) fq_add(f[n], a[n], d[n]);
 }
 
-// Sum three field elements per thread over the block; thread 0 gets the
-// totals.  sh: 3 * 8 * BLOCK words.
-static __device__ void block_sum3(uint32_t (*e)[8], uint32_t* sh) {
-  int t = threadIdx.x;
+// Table t's pair (lo, hi) for pair j, folded first in FOLD_EVALS mode,
+// as the round polynomial's factor at X = 0, 2 (and 3 when NP == 3).
+// LAZY leaves the values at X = 2, 3 unreduced (< 3q), for a factor
+// that only enters fq_mul as its second operand.
+template <int MODE, int NP, bool LAZY>
+static __device__ __forceinline__ void factor(uint32_t x[NP][8],
+                                              const tables_t& tabs, int t,
+                                              long j, long m,
+                                              const fq_arg_t& r) {
+  const uint32_t* T = tabs.in[t];
+  uint32_t lo[8], hi[8];
+  if constexpr (MODE == MODE_EVALS) {
+    fq_load(lo, T + 8 * j);
+    fq_load(hi, T + 8 * (j + m));
+  } else {
+    long h = m / 2;
+    uint32_t a[2][8], b[2][8], f[2][8];
+    fq_load(a[0], T + 8 * j);
+    fq_load(a[1], T + 8 * (j + h));
+    fq_load(b[0], T + 8 * (m + j));
+    fq_load(b[1], T + 8 * (m + j + h));
+    fold_n<2>(f, a, b, r);
+    fq_store(tabs.out[t] + 8 * j, f[0]);
+    fq_store(tabs.out[t] + 8 * (j + h), f[1]);
 #pragma unroll
-  for (int k = 0; k < 3; k++)
-#pragma unroll
-    for (int j = 0; j < 8; j++) sh[(k * 8 + j) * BLOCK + t] = e[k][j];
-  __syncthreads();
-  for (int half = BLOCK / 2; half > 0; half >>= 1) {
-    if (t < half) {
-#pragma unroll
-      for (int k = 0; k < 3; k++) {
-        uint32_t a[8], b[8];
-#pragma unroll
-        for (int j = 0; j < 8; j++) {
-          a[j] = sh[(k * 8 + j) * BLOCK + t];
-          b[j] = sh[(k * 8 + j) * BLOCK + t + half];
-        }
-        fq_add(a, a, b);
-#pragma unroll
-        for (int j = 0; j < 8; j++) sh[(k * 8 + j) * BLOCK + t] = a[j];
-      }
+    for (int w = 0; w < 8; w++) {
+      lo[w] = f[0][w];
+      hi[w] = f[1][w];
     }
-    __syncthreads();
   }
-  if (t == 0) {
+  uint32_t d[8];
+  fq_sub(d, hi, lo);
 #pragma unroll
-    for (int k = 0; k < 3; k++)
-#pragma unroll
-      for (int j = 0; j < 8; j++) e[k][j] = sh[(k * 8 + j) * BLOCK];
+  for (int w = 0; w < 8; w++) x[0][w] = lo[w];
+  if constexpr (LAZY) {
+    fq_add_lazy(x[1], hi, d);  // 2 hi - lo
+    if constexpr (NP == 3) fq_add_lazy(x[2], x[1], d);  // 3 hi - 2 lo
+  } else {
+    fq_add(x[1], hi, d);
+    if constexpr (NP == 3) fq_add(x[2], x[1], d);
   }
 }
 
-// n: size of the input tables.  FOLD: one thread per j < n/2.
-// EVALS: one thread per pair j < n/2.  FOLD_EVALS: one thread per
-// j < n/4.  partial: (gridDim.x, 3, 8) block sums (not written in FOLD).
+// Sum the NP accumulators over the block; thread 0 gets the totals.
+template <int NP>
+static __device__ __forceinline__ void block_sum(uint32_t acc[3][9],
+                                                 uint32_t (*sh)[3][9]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < NP; k++) {
+      uint32_t o[9];
+#pragma unroll
+      for (int w = 0; w < 9; w++)
+        o[w] = __shfl_down_sync(0xffffffffu, acc[k][w], off);
+      fq_acc_add9(acc[k], o);
+    }
+  }
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < NP; k++)
+#pragma unroll
+      for (int w = 0; w < 9; w++) sh[warp][k][w] = acc[k][w];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int v = 1; v < NWARPS; v++)
+#pragma unroll
+      for (int k = 0; k < NP; k++) fq_acc_add9(acc[k], sh[v][k]);
+  }
+}
+
+template <int NTAB>
+static __device__ __forceinline__ void fold_only(const tables_t& tabs,
+                                                 long n, const fq_arg_t& r) {
+  long m = n / 2;
+  long stride = (long)gridDim.x * BLOCK;
+  for (long j = (long)blockIdx.x * BLOCK + threadIdx.x; j < m; j += stride) {
+    uint32_t a[NTAB][8], b[NTAB][8], f[NTAB][8];
+#pragma unroll
+    for (int t = 0; t < NTAB; t++) {
+      fq_load(a[t], tabs.in[t] + 8 * j);
+      fq_load(b[t], tabs.in[t] + 8 * (m + j));
+    }
+    fold_n<NTAB>(f, a, b, r);
+#pragma unroll
+    for (int t = 0; t < NTAB; t++) fq_store(tabs.out[t] + 8 * j, f[t]);
+  }
+}
+
 template <int NTAB, int MODE>
-__global__ void fold_evals_kernel(tables_t tabs, long n, fq_arg_t r,
-                                  uint32_t* __restrict__ partial) {
-  __shared__ uint32_t sh[3 * 8 * BLOCK];
-  long j = (long)blockIdx.x * BLOCK + threadIdx.x;
+static __device__ __forceinline__ void with_evals(
+    const tables_t& tabs, long n, const fq_arg_t& r, uint32_t* partial,
+    unsigned int* ticket, uint32_t* evals) {
+  constexpr int NP = NTAB == 4 ? 3 : 2;
   long m = n / 2;
   long count = MODE == MODE_FOLD_EVALS ? m / 2 : m;
-  bool live = j < count;
+  long stride = (long)gridDim.x * BLOCK;
+  long j0 = (long)blockIdx.x * BLOCK + threadIdx.x;
 
-  uint32_t lo[NTAB][8], hi[NTAB][8];
-  if (live) {
-#pragma unroll
-    for (int t = 0; t < NTAB; t++) {
-      const uint32_t* T = tabs.in[t];
-      if constexpr (MODE == MODE_EVALS) {
-        fq_load(lo[t], T + 8 * j);
-        fq_load(hi[t], T + 8 * (j + m));
-      } else if constexpr (MODE == MODE_FOLD) {
-        uint32_t a[8], b[8];
-        fq_load(a, T + 8 * j);
-        fq_load(b, T + 8 * (j + m));
-        fq_sub(b, b, a);
-        fq_mul(b, r.v, b);
-        fq_add(a, a, b);
-        fq_store(tabs.out[t] + 8 * j, a);
-      } else {
-        long h = m / 2;
-        uint32_t a[8], b[8];
-        fq_load(a, T + 8 * j);
-        fq_load(b, T + 8 * (m + j));
-        fq_sub(b, b, a);
-        fq_mul(b, r.v, b);
-        fq_add(lo[t], a, b);
-        fq_load(a, T + 8 * (j + h));
-        fq_load(b, T + 8 * (m + j + h));
-        fq_sub(b, b, a);
-        fq_mul(b, r.v, b);
-        fq_add(hi[t], a, b);
-        fq_store(tabs.out[t] + 8 * j, lo[t]);
-        fq_store(tabs.out[t] + 8 * (j + h), hi[t]);
-      }
-    }
-  }
-  if constexpr (MODE == MODE_FOLD) return;
-
-  uint32_t e[3][8];
+  uint32_t acc[3][9];
 #pragma unroll
   for (int k = 0; k < 3; k++)
 #pragma unroll
-    for (int w = 0; w < 8; w++) e[k][w] = 0;
-  if (live) {
-    comb<NTAB>(e[0], lo);
-    // X = 2: p2 = 2 hi - lo; X = 3: p3 = p2 + (hi - lo)
-    uint32_t p[NTAB][8];
+    for (int w = 0; w < 9; w++) acc[k][w] = 0;
+  for (long j = j0; j < count; j += stride) {
+    uint32_t e[NP][8];
+    if constexpr (NTAB == 4) {  // A * (B * C - D), table by table
+      uint32_t x[NP][8];
+      factor<MODE, NP, false>(e, tabs, 1, j, m, r);
+      factor<MODE, NP, true>(x, tabs, 2, j, m, r);
+      fq_mul_n<NP>(e, e, x);
+      factor<MODE, NP, false>(x, tabs, 3, j, m, r);
 #pragma unroll
-    for (int t = 0; t < NTAB; t++) {
-      fq_add(p[t], hi[t], hi[t]);
-      fq_sub(p[t], p[t], lo[t]);
+      for (int k = 0; k < NP; k++) fq_sub(e[k], e[k], x[k]);
+      factor<MODE, NP, true>(x, tabs, 0, j, m, r);
+      fq_mul_n<NP>(e, e, x);
+    } else {  // A * B
+      uint32_t x[NP][8];
+      factor<MODE, NP, false>(e, tabs, 0, j, m, r);
+      factor<MODE, NP, true>(x, tabs, 1, j, m, r);
+      fq_mul_n<NP>(e, e, x);
     }
-    comb<NTAB>(e[1], p);
-    if constexpr (NTAB == 4) {
 #pragma unroll
-      for (int t = 0; t < NTAB; t++) {
-        uint32_t d[8];
-        fq_sub(d, hi[t], lo[t]);
-        fq_add(p[t], p[t], d);
-      }
-      comb<NTAB>(e[2], p);
+    for (int k = 0; k < NP; k++) fq_acc_add(acc[k], e[k]);
+  }
+
+  __shared__ uint32_t sh[NWARPS][3][9];
+  __shared__ bool last;
+  block_sum<NP>(acc, sh);
+  if (threadIdx.x == 0) {
+    uint32_t* dst = partial + (size_t)blockIdx.x * 27;
+#pragma unroll
+    for (int k = 0; k < NP; k++)
+#pragma unroll
+      for (int w = 0; w < 9; w++) dst[k * 9 + w] = acc[k][w];
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // the last block: sum the partials (read from L2: other SMs wrote them)
+#pragma unroll
+  for (int k = 0; k < 3; k++)
+#pragma unroll
+    for (int w = 0; w < 9; w++) acc[k][w] = 0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += BLOCK) {
+#pragma unroll
+    for (int k = 0; k < NP; k++) {
+      uint32_t o[9];
+#pragma unroll
+      for (int w = 0; w < 9; w++)
+        o[w] = __ldcg(partial + (size_t)b * 27 + k * 9 + w);
+      fq_acc_add9(acc[k], o);
     }
   }
-  block_sum3(e, sh);
+  __syncthreads();  // sh is reused
+  block_sum<NP>(acc, sh);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int k = 0; k < 3; k++)
-      fq_store(partial + ((size_t)blockIdx.x * 3 + k) * 8, e[k]);
+    for (int k = 0; k < 3; k++) {
+      uint32_t v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      if (k < NP) fq_reduce_wide(v, acc[k]);
+      fq_store(evals + k * 8, v);
+    }
   }
 }
 
-// One block: evals[k] = sum_b partial[b][k] mod q.
-__global__ void sum_partials_kernel(const uint32_t* __restrict__ partial,
-                                    int nparts, uint32_t* __restrict__ evals) {
-  __shared__ uint32_t sh[3 * 8 * BLOCK];
-  uint32_t e[3][8];
-#pragma unroll
-  for (int k = 0; k < 3; k++)
-#pragma unroll
-    for (int w = 0; w < 8; w++) e[k][w] = 0;
-  for (int b = threadIdx.x; b < nparts; b += BLOCK) {
-#pragma unroll
-    for (int k = 0; k < 3; k++) {
-      uint32_t x[8];
-      fq_load(x, partial + ((size_t)b * 3 + k) * 8);
-      fq_add(e[k], e[k], x);
-    }
-  }
-  block_sum3(e, sh);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < 3; k++) fq_store(evals + k * 8, e[k]);
-  }
+// n: size of the input tables.  FOLD: pairs j < n/2 (no evals).
+// EVALS: pairs j < n/2.  FOLD_EVALS: pairs j < n/4.  partial:
+// (gridDim.x, 3, 9) block sums; ticket: a counter, zero at the launch
+// and this launch's own; evals: (3, 8) canonical Montgomery residues.
+template <int NTAB, int MODE>
+__global__ void __launch_bounds__(BLOCK, BLOCKS_PER_SM)
+    fold_evals_kernel(tables_t tabs, long n, fq_arg_t r,
+                      uint32_t* __restrict__ partial,
+                      unsigned int* __restrict__ ticket,
+                      uint32_t* __restrict__ evals) {
+  if constexpr (MODE == MODE_FOLD)
+    fold_only<NTAB>(tabs, n, r);
+  else
+    with_evals<NTAB, MODE>(tabs, n, r, partial, ticket, evals);
 }
 
 // in/out: ntab table pointers each (unused slots may be null).  partial:
-// scratch of nblocks * 3 * 8 words, nblocks = ceil(threads / 256).
-// evals: (3, 8) output (untouched in FOLD mode).
+// scratch of nblocks * 27 words; ticket: one zeroed word that no other
+// launch in flight shares; evals: (3, 8) output.  FOLD mode writes neither partial nor evals.
 extern "C" int fold_evals_launch(const void* in0, const void* in1,
                                  const void* in2, const void* in3,
                                  void* out0, void* out1, void* out2,
                                  void* out3, int ntab, long n, int mode,
-                                 fq_arg_t r, void* partial, void* evals,
-                                 void* stream) {
+                                 fq_arg_t r, int nblocks, void* partial,
+                                 void* ticket, void* evals, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   tables_t tabs;
   tabs.in[0] = (const uint32_t*)in0;
@@ -215,11 +291,11 @@ extern "C" int fold_evals_launch(const void* in0, const void* in1,
   tabs.out[1] = (uint32_t*)out1;
   tabs.out[2] = (uint32_t*)out2;
   tabs.out[3] = (uint32_t*)out3;
-  long threads = mode == MODE_FOLD_EVALS ? n / 4 : n / 2;
-  int nblocks = (int)((threads + BLOCK - 1) / BLOCK);
   uint32_t* part = (uint32_t*)partial;
+  unsigned int* tk = (unsigned int*)ticket;
+  uint32_t* ev = (uint32_t*)evals;
 #define LAUNCH(NT, MD) \
-  fold_evals_kernel<NT, MD><<<nblocks, BLOCK, 0, s>>>(tabs, n, r, part)
+  fold_evals_kernel<NT, MD><<<nblocks, BLOCK, 0, s>>>(tabs, n, r, part, tk, ev)
   if (ntab == 4) {
     if (mode == MODE_EVALS) LAUNCH(4, MODE_EVALS);
     else if (mode == MODE_FOLD_EVALS) LAUNCH(4, MODE_FOLD_EVALS);
@@ -230,9 +306,5 @@ extern "C" int fold_evals_launch(const void* in0, const void* in1,
     else LAUNCH(2, MODE_FOLD);
   }
 #undef LAUNCH
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || mode == MODE_FOLD) return (int)e;
-  sum_partials_kernel<<<1, BLOCK, 0, s>>>((const uint32_t*)partial, nblocks,
-                                          (uint32_t*)evals);
   return (int)cudaGetLastError();
 }

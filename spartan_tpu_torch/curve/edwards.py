@@ -7,7 +7,7 @@ tensors (storage layout, canonical mod p), as the JAX package's
 ``double16`` work on the compute layout (tuples of four ``(..., 16)``
 int64 lazy coordinates) so that chains of point operations unpack once;
 they are the formulas of the device kernels in ``csrc/fp25519.cuh``
-(add-2008-hwcd-3 and dbl-2008-hwcd).
+(add-2008-hwcd-3, its mixed form ``madd16`` and dbl-2008-hwcd).
 """
 
 from __future__ import annotations
@@ -66,6 +66,23 @@ def add16(p, q):
     b = fp.mul16(fp.add16(y1, x1), fp.add16(y2, x2))
     c = fp.mul16(fp.mul16(t1, d2), t2)
     d = fp.dbl16(fp.mul16(z1, z2))
+    e = fp.sub16(b, a)
+    f = fp.sub16(d, c)
+    g = fp.add16(d, c)
+    h = fp.add16(b, a)
+    return (fp.mul16(e, f), fp.mul16(g, h), fp.mul16(f, g), fp.mul16(e, h))
+
+
+def madd16(p, q):
+    """Mixed addition: ``q`` is a precomputed affine entry (y+x, y-x,
+    2d*x*y) with Z = 1, so it costs 7 products (``ge_madd`` in
+    ``csrc/fp25519.cuh``); complete like ``add16``."""
+    x1, y1, z1, t1 = p
+    yp, ym, t2d = q
+    a = fp.mul16(fp.sub16(y1, x1), ym)
+    b = fp.mul16(fp.add16(y1, x1), yp)
+    c = fp.mul16(t1, t2d)
+    d = fp.dbl16(z1)
     e = fp.sub16(b, a)
     f = fp.sub16(d, c)
     g = fp.add16(d, c)

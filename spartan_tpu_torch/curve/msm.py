@@ -34,7 +34,7 @@ def msm(scalars: torch.Tensor, points: list[hed.Point]) -> ed.PointArray:
     """sum_i scalars[i] * points[i] for (N, 8) canonical scalars: one
     row of the row-MSM (its multiples table is built here, once).
     Returns a PointArray of shape ()."""
-    tab = build_table(ed.from_host(points, scalars.device))
+    tab = build_table(points, scalars.device)
     return ed.unstack(row_msm(scalars[None], tab)[0])
 
 

@@ -33,7 +33,9 @@ from ..protocols import _combs
 from . import fq, limb
 
 MODES = {"evals": 0, "fold_evals": 1, "fold": 2}
-BLOCK = 256  # threads per block of the CUDA kernel
+BLOCK = 128  # threads per block of the CUDA kernel
+BLOCKS_PER_SM = 4  # the kernel's __launch_bounds__ residency
+_PARTIAL_WORDS = 27  # a block's three 9-word sums
 _WHICH = {2: "quad", 4: "cubic"}
 
 
@@ -45,8 +47,16 @@ def _declare(lib) -> None:
     p = ctypes.c_void_p
     lib.fold_evals_launch.argtypes = (
         [p] * 8 + [ctypes.c_int, ctypes.c_long, ctypes.c_int, _FqArg,
-                   p, p, p])
+                   ctypes.c_int, p, p, p, p])
     lib.fold_evals_launch.restype = ctypes.c_int
+
+
+def _grid(n: int, mode: str, device) -> int:
+    """Blocks of the launch: one full wave (BLOCKS_PER_SM a multiprocessor)
+    striding over the pairs, fewer when there are fewer pairs."""
+    pairs = n // 4 if mode == "fold_evals" else n // 2
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(BLOCKS_PER_SM * sms, -(-pairs // BLOCK)))
 
 
 def fold_evals_plain(tables, r: int | None, mode: str):
@@ -107,12 +117,15 @@ def fold_evals(tables, r: int | None, mode: str):
     outs = ([torch.empty((n // 2, limb.NWORDS), dtype=torch.int32,
                          device=dev) for _ in ins]
             if mode != "evals" else [])
-    threads = n // 4 if mode == "fold_evals" else n // 2
-    nblocks = -(-threads // BLOCK)
-    partial = evals = None
+    nblocks = _grid(n, mode, dev)
+    partial = ticket = evals = None
     if mode != "fold":
-        partial = torch.empty((nblocks, 3, limb.NWORDS), dtype=torch.int32,
-                              device=dev)
+        # the blocks' partial sums, then the zeroed counter by which the
+        # last block finds itself: a launch's own, so launches on other
+        # streams cannot share it
+        scratch = torch.zeros(nblocks * _PARTIAL_WORDS + 1,
+                              dtype=torch.int32, device=dev)
+        partial, ticket = scratch[:-1], scratch[-1:]
         evals = torch.empty((3, limb.NWORDS), dtype=torch.int32, device=dev)
     rarg = _FqArg()
     if r is not None:
@@ -123,11 +136,12 @@ def fold_evals(tables, r: int | None, mode: str):
     def ptrs(ts):
         return [t.data_ptr() for t in ts] + [None] * (4 - len(ts))
 
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     rc = lib.fold_evals_launch(
-        *ptrs(ins), *ptrs(outs), len(ins), n, MODES[mode], rarg,
-        partial.data_ptr() if partial is not None else None,
-        evals.data_ptr() if evals is not None else None,
-        _build.stream_handle(dev))
+        *ptrs(ins), *ptrs(outs), len(ins), n, MODES[mode], rarg, nblocks,
+        ptr(partial), ptr(ticket), ptr(evals), _build.stream_handle(dev))
     fold_evals.launches += 1
     _build.check(rc, "fold_evals")
     return (outs if mode != "evals" else ins), evals

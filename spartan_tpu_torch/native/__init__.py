@@ -87,6 +87,8 @@ def _build_and_load() -> ctypes.CDLL | None:
         ctypes.c_char_p, ctypes.c_char_p, size_t, ctypes.c_char_p]
     lib.spartan_ge_seq_points.argtypes = [
         ctypes.c_char_p, size_t, ctypes.c_char_p]
+    lib.spartan_ge_table_niels.argtypes = [
+        ctypes.c_char_p, size_t, ctypes.c_char_p]
     lib.spartan_ristretto_decode.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
     lib.spartan_ristretto_decode.restype = ctypes.c_int
     lib.spartan_ristretto_encode.argtypes = [ctypes.c_char_p, ctypes.c_char_p]

@@ -806,6 +806,28 @@ extern "C" void spartan_ge_msm(const u8* pts, const u8* scalars, size_t n,
   ge_toblob(out, &r);
 }
 
+// The row-MSM's table: out holds 16 x n entries, entry (d, i) at
+// 96 * (d * n + i), of d * P_i in the precomputed affine form
+// (y+x | y-x | 2d*x*y), 32 canonical bytes each; d = 0 is (1, 1, 0).
+// The multiples come from chained unified adds, normalised with one
+// batched inversion.
+extern "C" void spartan_ge_table_niels(const u8* pts, size_t n, u8* out) {
+  std::vector<ge> M(16 * n);
+  for (size_t i = 0; i < n; i++) {
+    ge_identity(&M[i]);
+    ge_fromblob(&M[n + i], pts + 128 * i);
+    for (size_t d = 2; d < 16; d++)
+      ge_add(&M[d * n + i], &M[(d - 1) * n + i], &M[n + i]);
+  }
+  std::vector<genl> N(16 * n);
+  ge_batch_to_niels(M.data(), 16 * n, N.data());
+  for (size_t k = 0; k < 16 * n; k++) {
+    fe_tobytes(out + 96 * k, &N[k].YpX);
+    fe_tobytes(out + 96 * k + 32, &N[k].YmX);
+    fe_tobytes(out + 96 * k + 64, &N[k].T2d);
+  }
+}
+
 // bench helper: out[i] = (i+1) * base, n blobs of 128 bytes.  MSM cost is
 // independent of the point VALUES (vartime only in scalar digits), so
 // sequential multiples are an honest generator stand-in and derive in

@@ -1,11 +1,15 @@
 """The CUDA kernels' field and point arithmetic (``csrc/fq.cuh``,
-``csrc/fp25519.cuh``) compiled for the host with g++ and held against
-python-int oracles.
+``csrc/fp25519.cuh``, ``csrc/carry.cuh``) compiled for the host with g++
+and held against python-int oracles.
 
 The headers are plain C++ apart from CUDA's qualifiers and vector types,
 which a small shim defines away, so the arithmetic that runs inside the
-kernels is checked here without a card.  Values include the edge cases
-0, 1, q-1, p-1, p and the lazy 2^256 - 1.
+kernels is checked here without a card.  Off the device, ``carry.cuh``
+gives its carry-chain primitives in C++ with the carry flag in a
+variable, so the chains' word and carry bookkeeping is what is checked
+here (the PTX instructions themselves only on the card, kernel against
+plain version).  Values include the edge cases 0, 1, q-1, p-1, p and the
+lazy 2^256 - 1.
 """
 
 import ctypes
@@ -50,6 +54,18 @@ void h_ge_add(uint32_t* r, const uint32_t* p, const uint32_t* q) {
 void h_ge_dbl(uint32_t* r, const uint32_t* p) {
   ge_t a, c; ge_load(a, p); ge_dbl(c, a); ge_store(r, c);
 }
+void h_ge_madd(uint32_t* r, const uint32_t* p, const uint32_t* q) {
+  ge_t a, c; ge_pre_t b; ge_load(a, p); ge_pre_load(b, q);
+  ge_madd(c, a, b); ge_store(r, c);
+}
+void h_fq_mul3(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  fq_mul_n<3>((uint32_t(*)[8])r, (const uint32_t(*)[8])a,
+              (const uint32_t(*)[8])b);
+}
+void h_fq_add_lazy(uint32_t* r, const uint32_t* a, const uint32_t* b) { fq_add_lazy(r, a, b); }
+void h_fq_acc_add(uint32_t* acc, const uint32_t* x) { fq_acc_add(acc, x); }
+void h_fq_acc_add9(uint32_t* acc, const uint32_t* x) { fq_acc_add9(acc, x); }
+void h_fq_reduce_wide(uint32_t* r, const uint32_t* v) { fq_reduce_wide(r, v); }
 }
 """
 
@@ -82,6 +98,12 @@ def _op(lib, name, *args):
     return _val(out)
 
 
+def _op9(lib, name, acc, x, xwords):
+    buf = _buf(acc, 9)
+    getattr(lib, name)(buf, _buf(x, xwords))
+    return _val(buf)
+
+
 R = 1 << 256
 M = R - 1
 
@@ -95,6 +117,14 @@ def test_fq_ops(lib):
         assert _op(lib, "h_fq_mul", x, y) == x * y * r_inv % Q
         assert _op(lib, "h_fq_add", x, y) == (x + y) % Q
         assert _op(lib, "h_fq_sub", x, y) == (x - y) % Q
+    # three independent products side by side (fq_mul_n<3>)
+    for k in range(0, len(xs) - 2, 3):
+        out = _buf(0, 24)
+        lib.h_fq_mul3(out, _buf(xs[k] | xs[k + 1] << 256 | xs[k + 2] << 512, 24),
+                      _buf(ys[k] | ys[k + 1] << 256 | ys[k + 2] << 512, 24))
+        v = _val(out)
+        assert [(v >> (256 * n)) % R for n in range(3)] == [
+            xs[k + n] * ys[k + n] * r_inv % Q for n in range(3)]
 
 
 def test_fp_lazy_ops(lib):
@@ -134,3 +164,79 @@ def test_point_ops(lib):
         out = (ctypes.c_uint32 * 32)()
         lib.h_ge_dbl(out, _pt_buf(p))
         assert jri.encode(_pt(out)) == jri.encode(p.double())
+
+
+def _pre_buf(pt):
+    """A host point as the table's precomputed entry (y+x, y-x, 2d*x*y)."""
+    x, y = pt.to_affine()
+    vals = ((y + x) % P, (y - x) % P, jed.D2 * x * y % P)
+    return _buf(sum(c << (256 * k) for k, c in enumerate(vals)), 24)
+
+
+def _pts(seed: int, n: int):
+    rng = random.Random(seed)
+    return [jri.from_uniform_bytes(rng.randbytes(64)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("pairs", ["random", "edges"])
+def test_mixed_add(lib, pairs):
+    """ge_madd against the host's point addition: every pair of a few
+    points and the identity, on either side; and the edges p + p,
+    p + (-p) and the identity's own entry (1, 1, 0)."""
+    pts = _pts(14, 6) + [jed.Point.identity()]
+    if pairs == "random":
+        cases = [(p, q) for p in pts for q in pts]
+    else:
+        cases = [c for p in pts for c in ((p, p), (p, p.neg()),
+                                          (p.neg(), p))]
+    for p, q in cases:
+        out = (ctypes.c_uint32 * 32)()
+        lib.h_ge_madd(out, _pt_buf(p), _pre_buf(q))
+        assert jri.encode(_pt(out)) == jri.encode(p.add(q))
+
+
+EDGES = [0, 1, Q - 1, P - 1, M]
+TOP = 1 << 288  # the 9-word accumulators' range
+
+
+@pytest.mark.parametrize("op", ["acc_add", "acc_add9", "add_lazy",
+                                "mul_lazy", "reduce_wide"])
+def test_fq_accumulate_and_reduce(lib, op):
+    """The 9-word accumulators, the lazy sum that feeds fq_mul's second
+    operand, and the one reduction mod q, at the edge values 0, 1, q-1,
+    p-1, 2^256-1 and at random values."""
+    rng = random.Random(15)
+    accs = [0, 1, Q - 1, M, TOP - 1 - M, (1 << 287) - 1]
+    if op == "acc_add":
+        xs = EDGES + [rng.randrange(1 << 256) for _ in range(20)]
+        for acc in accs + [rng.randrange(1 << 287) for _ in range(20)]:
+            for x in xs:
+                if acc + x < TOP:
+                    assert _op9(lib, "h_fq_acc_add", acc, x, 8) == acc + x
+    elif op == "acc_add9":
+        for acc in accs + [rng.randrange(1 << 287) for _ in range(20)]:
+            for x in accs + [rng.randrange(1 << 287) for _ in range(5)]:
+                if acc + x < TOP:
+                    assert _op9(lib, "h_fq_acc_add9", acc, x, 9) == acc + x
+    elif op == "add_lazy":
+        xs = EDGES + [rng.randrange(1 << 255) for _ in range(20)]
+        for x in xs:
+            for y in xs:
+                if x + y < 1 << 256:
+                    assert _op(lib, "h_fq_add_lazy", x, y) == x + y
+    elif op == "mul_lazy":
+        # fq_mul takes a lazy second operand (< 2^256) beside a canonical
+        # first
+        r_inv = pow(1 << 256, -1, Q)
+        xs = [0, 1, Q - 1] + [rng.randrange(Q) for _ in range(10)]
+        ys = EDGES + [3 * Q - 1] + [rng.randrange(1 << 256) for _ in range(10)]
+        for x in xs:
+            for y in ys:
+                assert _op(lib, "h_fq_mul", x, y) == x * y * r_inv % Q
+    else:
+        vs = EDGES + [TOP - 1, M + 1, Q * (1 << 32) + 5,
+                      sum(EDGES)] + [rng.randrange(TOP) for _ in range(50)]
+        for v in vs:
+            out = _buf(0)
+            lib.h_fq_reduce_wide(out, _buf(v, 9))
+            assert _val(out) == v % Q, v

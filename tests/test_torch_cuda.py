@@ -43,7 +43,7 @@ def _elems(n, seed, device):
 
 
 @pytest.mark.parametrize("L,R", [(4, 16), (3, 20), (2, 24), (1024, 1),
-                                 (1024, 1024)])
+                                 (1024, 1024), (1, 4096)])
 def test_row_msm_kernel_vs_plain(dev, L, R):
     tab = MultiCommitGens(R, b"cuda_test").msm_table(dev)
     s = _elems(L * R, L + R, dev).reshape(L, R, 8)
@@ -80,6 +80,25 @@ def test_fold_evals_kernel_two_round_chain(dev, ntab):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         if mode != "fold":
             assert torch.equal(ge, we)
+
+
+def test_fold_evals_kernel_on_two_streams(dev):
+    """Launches in flight on two streams at once each find their own last
+    block: every one still equals the plain version."""
+    sets = [[_elems(1 << 18, 100 * k + t, dev) for t in range(4)]
+            for k in range(2)]
+    streams = [torch.cuda.Stream() for _ in sets]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[] for _ in sets]
+    for _ in range(8):
+        for k, (tabs, s) in enumerate(zip(sets, streams)):
+            with torch.cuda.stream(s):
+                got[k].append(rk.fold_evals(tabs, None, "evals")[1])
+    torch.cuda.synchronize()
+    for tabs, evals in zip(sets, got):
+        want = rk.fold_evals_plain(tabs, None, "evals")[1]
+        assert all(torch.equal(e, want) for e in evals)
 
 
 def test_golden_nizk_on_the_card(dev):

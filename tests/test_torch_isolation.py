@@ -1,9 +1,10 @@
 """The port imports neither JAX nor the JAX package.
 
-An AST walk over every module of ``spartan_tpu_torch`` and over
-``chip_smoke.py`` finds no ``import`` of ``jax``, ``jaxlib`` or
-``spartan_tpu``; a fresh interpreter that imports every module of the
-port has none of them in ``sys.modules``.
+An AST walk over every module of ``spartan_tpu_torch``, over
+``chip_smoke.py`` and over the port's scripts in ``tools/`` finds no
+``import`` of ``jax``, ``jaxlib`` or ``spartan_tpu``; a fresh
+interpreter that imports every module of the port has none of them in
+``sys.modules``.
 """
 
 import ast
@@ -22,7 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "spartan_tpu")
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, files in os.walk(PKG):
+    tools = os.path.join(ROOT, "tools")
+    for d, _, files in [*os.walk(PKG), *os.walk(tools)]:
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
 

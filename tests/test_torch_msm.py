@@ -28,7 +28,7 @@ from spartan_tpu.core import ristretto as jri
 from spartan_tpu.core.field import P25519 as P
 from spartan_tpu.core.field import Q
 from spartan_tpu.curve import pallas_msm as pm
-from spartan_tpu_torch import commitments, interop
+from spartan_tpu_torch import commitments, interop, native
 from spartan_tpu_torch.curve import edwards as ed
 from spartan_tpu_torch.curve import msm as dmsm
 from spartan_tpu_torch.curve import ristretto as dri
@@ -109,13 +109,37 @@ def test_gens_match_jax_package():
 
 
 def test_multiples_table():
+    """Entries in the precomputed affine form: tab[d][i] = (y+x, y-x,
+    2d*x*y) of the host's d * G_i, canonical; the identity is (1, 1, 0)."""
     pts = _points(5)
-    tab = commitments.build_table(ed.from_host(pts))
-    assert tab.shape == (16, 5, 4, 8)
+    tab = commitments.build_table(pts)
+    assert tab.shape == (16, 5, 3, 8)
     for d in range(16):
-        got = ed.to_host(ed.unstack(tab[d]))
-        for p, g in zip(pts, got):
-            assert jri.encode(g) == jri.encode(p.mul(d))
+        ent = [fp.decode_to_ints(tab[d, :, k]) for k in range(3)]
+        for i, p in enumerate(pts):
+            x, y = p.mul(d).to_affine() if d else (0, 1)
+            assert [e[i] for e in ent] == [(y + x) % P, (y - x) % P,
+                                           jed.D2 * x * y % P]
+
+
+def test_multiples_table_native_and_python_agree():
+    pts = _points(3) + [jed.Point.identity()]
+    if not native.available():
+        pytest.skip("no native host library (g++) on this machine")
+    want = limb.ints_to_limbs(commitments._table_ints(pts)).reshape(16, 4, 3, 8)
+    assert torch.equal(commitments.build_table(pts), want)
+
+
+def test_madd16_matches_host():
+    """The mixed add against the host's unified addition, the identity on
+    either side included."""
+    pts = _points(4) + [jed.Point.identity()]
+    qs = _points(4, b"q") + [jed.Point.identity()]
+    tab1 = limb.unpack(commitments.build_table(qs)[1])
+    pre = tuple(tab1[:, k] for k in range(3))
+    got = ed.to_host(ed.pack(ed.madd16(ed.unpack(ed.from_host(pts)), pre)))
+    for p, q, g in zip(pts, qs, got):
+        assert jri.encode(g) == jri.encode(p.add(q))
 
 
 @pytest.mark.parametrize("L,R", [(4, 16), (3, 20), (2, 24), (4, 1)])
@@ -127,7 +151,7 @@ def test_row_msm_plain_vs_host_msm(L, R):
     ks = ([0, 1, 2, 15, 16, Q - 1]
           + [rng.randrange(Q) for _ in range(L * R)])[:L * R]
     s = limb.ints_to_limbs(ks).reshape(L, R, 8)
-    out = rm.row_msm(s, commitments.build_table(pts))
+    out = rm.row_msm(s, commitments.build_table(ed.to_host(pts)))
     assert out.shape == (L, 4, 8)
     got = dri.compress_to_bytes(ed.unstack(out))
     for l in range(L):
@@ -135,8 +159,30 @@ def test_row_msm_plain_vs_host_msm(L, R):
         assert got[l] == jri.encode(want)
 
 
+def test_segments():
+    assert rm.segments(1024, 1024) == 1
+    assert rm.segments(1024, 1) == 1
+    assert rm.segments(1, 4096) == 64
+    assert rm.segments(1, 128) == 4
+    assert rm.segments(3, 20) == 1
+
+
+@pytest.mark.parametrize("R", [64, 256])
+def test_row_msm_plain_segment_tree(R):
+    """One row of 64 or 256 generators is cut into 2 or 8 segments whose
+    sums meet in the halving tree: still the host's MSM."""
+    assert rm.segments(1, R) == R // 32
+    rng = random.Random(40 + R)
+    pts = _points(R)
+    ks = [rng.randrange(Q) for _ in range(R)]
+    out = rm.row_msm_plain(limb.ints_to_limbs(ks)[None],
+                           commitments.build_table(pts))
+    assert dri.compress_to_bytes(ed.unstack(out)) == [
+        jri.encode(jed.msm(ks, pts))]
+
+
 def test_row_msm_checks_inputs():
-    tab = commitments.build_table(ed.from_host(_points(2)))
+    tab = commitments.build_table(_points(2))
     with pytest.raises(ValueError):
         rm.row_msm(torch.zeros((1, 3, 8), dtype=torch.int32), tab)
     with pytest.raises(ValueError):
