@@ -21,14 +21,26 @@ with the per-prove total beside the summed bound; the golden NIZK at
 tampered copy rejected, with every launch counter reset just before and
 read just after and the prove's cudaMalloc calls counted; one more 2^20
 witness commitment under ``torch.profiler`` (its kernels' device time).
-It ends with a JSON line per kernel, the card's line
-from nvidia-smi and ``{"ok": true, "device": {...}}``.  Any failure
-raises and exits non-zero; with no card it exits 2 before printing any
-result.  All inputs are made from fixed seeds.
+Then the SNARK slice: B1 against its plain version at (8, 4096),
+(64, 2048) and (2048, 2048); B2's batched 3-table (cubic_prod) mode
+against its plain version at (2, 4), (6, 64), (18, 4096), (18, 2^19),
+(12, 2^18) and (4, 2^20) in all modes, timed at (18, 2^19) in a CUDA
+graph beside its bound; the golden SNARK commitment and proof equal
+``tests/golden/``; a SNARK on the NIZK's 2^20 instance encoded, proved,
+verified and a tampered copy rejected, each of encode and prove between
+counter resets, the first, middle and last rows of each of their B1
+launches held against the plain version, with B1 timed on the encode's
+own tables; then the prove's batched B2 launches, as counted by shape,
+replayed and timed.  It ends with a JSON line per kernel (B2's batched
+mode its own line), the card's line from nvidia-smi and ``{"ok": true,
+"device": {...}}``.  Any failure raises and exits non-zero; with no card
+it exits 2 before printing any result.  All inputs are made from fixed
+seeds.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import json
 import os
@@ -141,10 +153,13 @@ def with_edges(t, edges):
     return t
 
 
-# the shapes each kernel is checked at; the last ones are the main
-# path's (the witness rows at 2^20; phase one's tables at 2^20, phase
-# two's at 2^21)
-MSM_SHAPES = [(4, 16), (3, 20), (2, 24), (1024, 1), (1024, 1024), (1, 4096)]
+# the shapes each kernel is checked at: B1's include the witness rows at
+# 2^20, the one row of vmsm, Spark's generator counts (4096, 2048) at
+# fewer rows and the whole comb_mem commitment of a 2^20 SNARK (2048,
+# 2048); B2's last ones are phase one's tables at 2^20 and phase two's
+# at 2^21
+MSM_SHAPES = [(4, 16), (3, 20), (2, 24), (1024, 1), (1024, 1024), (1, 4096),
+              (8, 4096), (64, 2048), (2048, 2048)]
 ROUND_CASES = [(4, 8), (4, 64), (4, 4096), (2, 8), (2, 256), (4, 1 << 20),
                (2, 1 << 21)]
 MSM_TIMED = (1024, 1024)
@@ -277,16 +292,17 @@ def row_msm_bound(scalars) -> dict:
                                             252 * L)))
 
 
-def fold_evals_bound(ntab: int, n: int, mode: str) -> dict:
+def fold_evals_bound(ntab: int, n: int, mode: str, batch: int = 1) -> dict:
     """Bytes: each input read once, each output written once.  Ops: the
     Montgomery products (2 per pair per table to fold, the comb's
-    products at 3 points for cubic, 2 for quad)."""
+    products at 3 points for the cubic combs, 2 for quad).  ``batch``
+    instances of ``n`` each."""
     out = n // 2 if mode != "evals" else 0
-    bytes_ = ntab * n * 32 + ntab * out * 32 + 96
-    pairs = n // 4 if mode == "fold_evals" else n // 2
+    bytes_ = batch * (ntab * n * 32 + ntab * out * 32 + 96)
+    pairs = batch * (n // 4 if mode == "fold_evals" else n // 2)
     folds = 2 * ntab * pairs if mode == "fold_evals" else (
         ntab * pairs if mode == "fold" else 0)
-    combs = 0 if mode == "fold" else pairs * (6 if ntab == 4 else 2)
+    combs = 0 if mode == "fold" else pairs * (2 if ntab == 2 else 6)
     wide = (folds + combs) * FQ_MUL_WIDE
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     t_ops = wide * IMAD_PER_WIDE / IMAD_S * 1e3
@@ -412,6 +428,168 @@ def check_round_chains(dev, gen) -> dict:
     return result
 
 
+# B2's batched 3-table (cubic_prod) mode: (instances, size) checked; the
+# last three are layers of a 2^20 SNARK's product proofs: the ops
+# circuits' layer 0 (12 product and 6 dot-product circuits of 2^19
+# pairs), a later ops layer (12 circuits) and the mem circuits' layer 0
+# (4 circuits of 2^20 pairs)
+PROD_CASES = [(2, 4), (6, 64), (18, 4096), (18, 1 << 19), (12, 1 << 18),
+              (4, 1 << 20)]
+PROD_TIMED = (18, 1 << 19)
+
+
+def check_cubic_prod(dev, gen) -> dict:
+    """B2's batched mode against its plain version in all three modes at
+    PROD_CASES; each mode timed at PROD_TIMED in a CUDA graph."""
+    import torch
+
+    from spartan_tpu_torch.core.field import Q
+    from spartan_tpu_torch.ff import round_kernel as rk
+
+    result = {}
+    for batch, n in PROD_CASES:
+        tabs = [with_edges(rand_elems(gen, batch * n, dev), [0, Q - 1, 1])
+                .reshape(batch, n, 8) for _ in range(3)]
+        for mode in ("evals", "fold_evals", "fold"):
+            rr = None if mode == "evals" else (5 ** 101) % Q
+            t0 = time.perf_counter()
+            want_t, want_e = rk.fold_evals_plain(tabs, rr, mode)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got_t, got_e = rk.fold_evals(tabs, rr, mode)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(a, b) for a, b in zip(got_t, want_t))
+            if mode != "fold":
+                err = max(err, max_abs_err(got_e, want_e))
+            del want_t, got_t
+            line = f"fold_evals cubic_prod ({batch}, {n}) {mode}: " \
+                   f"max_abs_err {err}"
+            if err != 0:
+                raise AssertionError(f"fold_evals cubic_prod differs from "
+                                     f"its plain version at ({batch}, {n}) "
+                                     f"{mode}")
+            if (batch, n) == PROD_TIMED:
+                ms = graph_ms(lambda: [rk.fold_evals(tabs, rr, mode)
+                                       for _ in range(10)], 5) / 10
+                eager = cuda_ms(lambda: rk.fold_evals(tabs, rr, mode), 10)
+                bound = fold_evals_bound(3, n, mode, batch)
+                line += (f", {ms:.4f} ms in a CUDA graph ({eager:.4f} ms "
+                         f"launched one by one), bound "
+                         f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}),"
+                         f" plain {plain_ms:.1f} ms")
+                result[mode] = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms,
+                                    max_abs_err=err, **bound)
+            log(line)
+        del tabs
+    return result
+
+
+def check_product_layer_chain(dev, shapes) -> dict:
+    """B2's batched launches of a SNARK prove replayed on random tables:
+    ``shapes`` counts the prove's own launches by (comb, batch, n, mode)
+    (``fold_evals.launches``).  Timed in a CUDA graph and launched one by
+    one, beside the summed bound."""
+    import torch
+
+    from spartan_tpu_torch.ff import round_kernel as rk
+
+    shapes = sorted(shapes.items())
+    most = max(b * n for (_, b, n, _), _ in shapes)
+    g = torch.Generator(device=dev).manual_seed(3)
+    bufs = [torch.randint(0, 1 << 28, (most, 8), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(3)]
+
+    def replay():
+        for (_, b, n, mode), count in shapes:
+            tabs = [t[:b * n].view(b, n, 8) for t in bufs]
+            r = None if mode == "evals" else 1000003
+            for _ in range(count):
+                rk.fold_evals(tabs, r, mode)
+
+    eager = cuda_ms(replay, 2)
+    ms = graph_ms(replay, 3)
+    launches = sum(c for _, c in shapes)
+    bound = sum(c * fold_evals_bound(3, n, mode, b)["bound_ms"]
+                for (_, b, n, mode), c in shapes)
+    log(f"fold_evals cubic_prod per 2^{LOG_N} SNARK prove: {launches} "
+        f"launches at {len(shapes)} shapes, replayed: {ms:.3f} ms in a "
+        f"CUDA graph ({eager:.3f} ms launched one by one), bound "
+        f"{bound:.3f} ms")
+    return dict(launches_per_prove=launches, ms_per_prove=ms,
+                eager_ms_per_prove=eager, bound_ms_per_prove=bound)
+
+
+def row_msm_on(scalars_mont, gens_pc, what: str) -> dict:
+    """B1 timed on a commitment's own table (``commit``'s row-MSM of
+    ``from_mont`` of it), its bound counted on those scalars."""
+    from spartan_tpu_torch.curve import row_msm as rm
+    from spartan_tpu_torch.ff import fq
+    from spartan_tpu_torch.poly import dense
+
+    ell = scalars_mont.shape[0].bit_length() - 1
+    left, right = dense.factored_lens(ell)
+    s = fq.from_mont(scalars_mont).reshape(1 << left, 1 << right, 8)
+    tab = gens_pc.gens.gens_n.msm_table(s.device)
+    ms = cuda_ms(lambda: rm.row_msm(s, tab), 3)
+    bound = row_msm_bound(s)
+    log(f"row_msm {what} ({1 << left}, {1 << right}): {ms:.3f} ms, bound "
+        f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; "
+        f"{bound['full_digits_bound_ms']:.3f} ms counting the zero digits)")
+    return dict(shape=[1 << left, 1 << right], ms=ms, **bound)
+
+
+class RowMsmRows:
+    """Keeps the first, middle and last rows of every ``msm_rows`` launch
+    of B1 (scalars and result) while active, so that the main path's own
+    launches can be held against the plain version afterwards."""
+
+    def __enter__(self):
+        from spartan_tpu_torch.curve import msm
+
+        self.launches = []
+        self._orig = msm.row_msm
+
+        def keep(scalars, tab):
+            out = self._orig(scalars, tab)
+            L = scalars.shape[0]
+            rows = sorted({0, L // 2, L - 1})
+            self.launches.append((tuple(scalars.shape[:2]), tab,
+                                  scalars[rows].clone(), out[rows].clone()))
+            return out
+
+        msm.row_msm = keep
+        return self
+
+    def __exit__(self, *exc):
+        from spartan_tpu_torch.curve import msm
+
+        msm.row_msm = self._orig
+
+    def check(self, what: str, want_shapes) -> list:
+        """Each kept launch's rows against the plain version on their
+        scalars, compared as compressed points (the segment counts of
+        the whole launch and of the rows differ, so the coordinates
+        do)."""
+        from spartan_tpu_torch.curve import edwards as ed
+        from spartan_tpu_torch.curve import ristretto as dri
+        from spartan_tpu_torch.curve import row_msm as rm
+
+        shapes = [shape for shape, *_ in self.launches]
+        missing = set(want_shapes) - set(shapes)
+        if missing:
+            raise AssertionError(f"row_msm in {what}: no launch at "
+                                 f"{sorted(missing)} (launched {shapes})")
+        for shape, tab, s, got in self.launches:
+            want = rm.row_msm_plain(s, tab)
+            if (dri.compress_to_bytes(ed.unstack(got))
+                    != dri.compress_to_bytes(ed.unstack(want))):
+                raise AssertionError(f"row_msm in {what} at {shape} "
+                                     f"differs from its plain version")
+        log(f"row_msm in {what}: first, middle and last rows of the "
+            f"launches at {shapes} equal the plain version")
+        return [list(shape) for shape in shapes]
+
+
 def new_segments(mem0: dict) -> list[int]:
     """cudaMalloc calls of the caching allocator since the memory stats
     ``mem0``, and its retries (a retry frees the cache and synchronises)."""
@@ -493,51 +671,247 @@ def golden(dev) -> None:
     log("golden: digest and NIZK bytes equal tests/golden, proof verifies")
 
 
-def nizk_main_path(dev, log_n: int) -> dict:
+def golden_snark(dev) -> None:
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import SNARK, Instance, SNARKGens
+    from spartan_tpu_torch.core.merlin import Transcript
+
+    gdir = os.path.join(REPO, "tests", "golden")
+    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
+        16, 16, 2, seed=424242, device=dev)
+    gens = SNARKGens(16, 16, 2, 16)
+    comm, decomm = SNARK.encode(inst, gens)
+    snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,
+                        Transcript(b"golden_snark"), _tape_seed=31337)
+    for name, blob in (("snark_commitment.bin",
+                        ser.commitment_to_bytes(comm)),
+                       ("snark_proof.bin", ser.snark_to_bytes(snark))):
+        with open(os.path.join(gdir, name), "rb") as f:
+            if blob != f.read():
+                raise AssertionError(f"{name} differs from the golden")
+    snark.verify(comm, inputs_a, Transcript(b"golden_snark"), gens)
+    log("golden: SNARK commitment and proof bytes equal tests/golden, "
+        "proof verifies")
+
+
+# the Spark spans of a SNARK prove (utils/timer.py totals), in order
+SNARK_SPANS = ["polycommit", "prove_sc_phase_one", "prove_sc_phase_two",
+               "polyeval", "eval_sparse_polys", "R1CSEvalProof::prove",
+               "commit_nondet_witness",
+               "build_layered_network+evalproof_layered_network",
+               "spark::hash_leaves", "spark::tree_build",
+               "spark::dotp_evaluate", "spark::layer_rounds",
+               "spark::evaluate", "polyeval::bound_L",
+               "polyeval::dotproduct_log"]
+
+
+def snark_main_path(dev, inst, vars_a, inputs_a) -> dict:
+    """The SNARK through the public API on the NIZK's instance: gens,
+    encode, prove, serialize, verify, a tampered copy rejected.  Counters
+    reset just before encode and before prove, read just after each."""
+    import torch
+
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import SNARK, SNARKGens
+    from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.ff import round_kernel as rk
+    from spartan_tpu_torch.poly import dense
+    from spartan_tpu_torch.utils import rt, timer
+    from spartan_tpu_torch.utils.errors import (ProofDeserializeError,
+                                                ProofVerifyError)
+
+    n, n_inputs = inst.inst.num_cons, inst.inst.num_inputs
+    log_n = n.bit_length() - 1
+    nnz = max(m.get_num_nz_entries()
+              for m in (inst.inst.A, inst.inst.B, inst.inst.C))
+    t0 = time.perf_counter()
+    gens = SNARKGens(n, n, n_inputs, nnz)
+    ev = gens.gens_r1cs_eval.gens
+    for g in (gens.gens_r1cs_sat.gens_pc.gens.gens_n, ev.gens_ops.gens.gens_n,
+              ev.gens_mem.gens.gens_n, ev.gens_derefs.gens.gens_n):
+        g.msm_table(dev), g.msm_table_h(dev)
+    torch.cuda.synchronize()
+    gens_s = time.perf_counter() - t0
+    log(f"snark 2^{log_n}: gens and tables built in {gens_s:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_stats()
+    reset_counts()
+    with RowMsmRows() as encode_rows:
+        t0 = time.perf_counter()
+        comm, decomm = SNARK.encode(inst, gens)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+    encode_launches = read_counts()
+    encode_peak = torch.cuda.max_memory_allocated()
+    if encode_launches["row_msm"] <= 0:
+        raise AssertionError(f"row_msm never launched in encode: "
+                             f"{encode_launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    mem1 = torch.cuda.memory_stats()
+    timer.totals.clear()
+    f0, s0 = rt.snapshot()
+    reset_counts()
+    with RowMsmRows() as prove_rows:
+        t0 = time.perf_counter()
+        snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,
+                            Transcript(b"chip_smoke_snark"), _tape_seed=7)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    prove_launches = read_counts()
+    prod_shapes = collections.Counter(
+        {k: c for k, c in rk.fold_evals.launches.items()
+         if k[0] == "cubic_prod"})
+    f1, s1 = rt.snapshot()
+    prove_peak = torch.cuda.max_memory_allocated()
+    spans = {k: timer.totals.get(k) for k in SNARK_SPANS}
+    if min(prove_launches["row_msm"],
+           prove_launches["fold_evals_by_comb"]["cubic_prod"]) <= 0:
+        raise AssertionError(f"a kernel never launched in prove: "
+                             f"{prove_launches}")
+
+    def dims(table):
+        left, right = dense.factored_lens(table.shape[0].bit_length() - 1)
+        return 1 << left, 1 << right
+
+    dense_rep = decomm.decomm.dense
+    checked = {
+        "encode": encode_rows.check("encode", [dims(dense_rep.comb_ops),
+                                               dims(dense_rep.comb_mem)]),
+        # the derefs table is half the ops table
+        "prove": prove_rows.check("prove", [dims(dense_rep.comb_ops[
+            :dense_rep.comb_ops.shape[0] // 2])])}
+
+    blob = ser.snark_to_bytes(snark)
+    comm_blob = ser.commitment_to_bytes(comm)
+    t0 = time.perf_counter()
+    ser.snark_from_bytes(blob).verify(ser.commitment_from_bytes(comm_blob),
+                                      inputs_a,
+                                      Transcript(b"chip_smoke_snark"), gens)
+    verify_s = time.perf_counter() - t0
+    verify_spans = {k: timer.records[k]
+                    for k in ("verify_sat_proof", "verify_eval_proof")}
+    rejected = []
+    for off in (len(blob) // 2, len(blob) - 100):
+        bad = bytearray(blob)
+        bad[off] ^= 1
+        try:
+            ser.snark_from_bytes(bytes(bad)).verify(
+                ser.commitment_from_bytes(comm_blob), inputs_a,
+                Transcript(b"chip_smoke_snark"), gens)
+        except (ProofVerifyError, ProofDeserializeError) as e:
+            rejected.append(off)
+            log(f"tampered SNARK (byte {off}) rejected: "
+                f"{type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"a tampered SNARK (byte {off}) verified")
+
+    spark_msm = [
+        row_msm_on(decomm.decomm.dense.comb_ops, ev.gens_ops, "comb_ops"),
+        row_msm_on(decomm.decomm.dense.comb_mem, ev.gens_mem, "comb_mem"),
+        row_msm_on(rand_elems(torch.Generator().manual_seed(9),
+                              decomm.decomm.dense.comb_ops.shape[0] // 2,
+                              dev), ev.gens_derefs,
+                   "derefs (random eq values)")]
+    summary = {"log_n": log_n, "num_inputs": n_inputs, "nnz": nnz,
+               "gens_s": gens_s, "encode_s": encode_s, "prove_s": prove_s,
+               "verify_s": verify_s, "spans_s": spans,
+               "verify_spans_s": verify_spans,
+               "prove_fetches": f1 - f0, "prove_fetch_stall_s": s1 - s0,
+               "peak_device_bytes": {"encode": encode_peak,
+                                     "prove": prove_peak},
+               "device_mallocs_prove": new_segments(mem1),
+               "device_mallocs_encode_and_prove": new_segments(mem0),
+               "commitment_bytes": len(comm_blob), "proof_bytes": len(blob),
+               "launches": {"encode": encode_launches,
+                            "prove": prove_launches},
+               "tampered_rejected_at": rejected,
+               "row_msm_rows_checked_at": checked,
+               "row_msm_on_spark_tables": spark_msm}
+    log("snark " + json.dumps(summary))
+    return summary, prod_shapes
+
+
+def make_instance(dev, log_n: int):
+    """The flagship instance, 2^log_n constraints and variables with 10
+    inputs, from seed 1: (instance, vars, inputs, seconds)."""
+    import torch
+
+    from spartan_tpu_torch.api import Instance
+
+    t0 = time.perf_counter()
+    n = 1 << log_n
+    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
+        n, n, 10, seed=1, device=dev)
+    torch.cuda.synchronize()
+    return inst, vars_a, inputs_a, time.perf_counter() - t0
+
+
+def reset_counts() -> None:
+    from spartan_tpu_torch.curve import row_msm as rm
+    from spartan_tpu_torch.ff import round_kernel as rk
+
+    rm.row_msm.launches = 0
+    rk.fold_evals.launches.clear()
+    rm.row_msm_plain.cuda_calls = rk.fold_evals_plain.cuda_calls = 0
+
+
+def read_counts() -> dict:
+    """The launch counts since reset_counts(); raises on a plain-version
+    call on the card."""
+    from spartan_tpu_torch.curve import row_msm as rm
+    from spartan_tpu_torch.ff import round_kernel as rk
+
+    plain = rm.row_msm_plain.cuda_calls + rk.fold_evals_plain.cuda_calls
+    if plain:
+        raise AssertionError(f"{plain} plain-version calls on the card")
+    by_comb = dict.fromkeys(rk._WHICH.values(), 0)
+    for (comb, *_), count in rk.fold_evals.launches.items():
+        by_comb[comb] += count
+    return {"row_msm": rm.row_msm.launches,
+            "fold_evals": sum(by_comb.values()),
+            "fold_evals_by_comb": by_comb,
+            "plain_calls_on_card": plain}
+
+
+def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
     """The main path through the public API, counters reset just before
     the prove and read just after it."""
     import torch
 
     from spartan_tpu_torch import serialize as ser
-    from spartan_tpu_torch.api import NIZK, Instance, NIZKGens
+    from spartan_tpu_torch.api import NIZK, NIZKGens
     from spartan_tpu_torch.core.merlin import Transcript
-    from spartan_tpu_torch.curve import row_msm as rm
-    from spartan_tpu_torch.ff import round_kernel as rk
     from spartan_tpu_torch.utils import timer
     from spartan_tpu_torch.utils.errors import (ProofDeserializeError,
                                                 ProofVerifyError)
 
-    n, n_inputs = 1 << log_n, 10
+    n, n_inputs = inst.inst.num_cons, inst.inst.num_inputs
+    log_n = n.bit_length() - 1
     t0 = time.perf_counter()
-    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
-        n, n, n_inputs, seed=1, device=dev)
     gens = NIZKGens(n, n, n_inputs)
     gens_pc = gens.gens_r1cs_sat.gens_pc.gens.gens_n
     gens_pc.msm_table(dev), gens_pc.msm_table_h(dev)
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    setup_s += time.perf_counter() - t0
     log(f"nizk 2^{log_n}: instance and gens built in {setup_s:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_stats()
-    rm.row_msm.launches = rk.fold_evals.launches = 0
-    rm.row_msm_plain.cuda_calls = rk.fold_evals_plain.cuda_calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     nizk = NIZK.prove(inst, vars_a, inputs_a, gens,
                       Transcript(b"chip_smoke"), _tape_seed=7)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
-    launches = {"row_msm": rm.row_msm.launches,
-                "fold_evals": rk.fold_evals.launches}
-    plain_calls = rm.row_msm_plain.cuda_calls + rk.fold_evals_plain.cuda_calls
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     mallocs = new_segments(mem0)
     phases = {k: timer.records[k] for k in (
         "polycommit", "prove_sc_phase_one", "prove_sc_phase_two",
         "polyeval")}
-    if plain_calls:
-        raise AssertionError(f"{plain_calls} plain-version calls on the card")
-    if min(launches.values()) <= 0:
+    if min(launches["row_msm"], launches["fold_evals"]) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
 
     blob = ser.nizk_to_bytes(nizk)
@@ -581,26 +955,49 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(20261016)
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     build_kernels()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"kernels built in {time.perf_counter() - t_start:.1f} s")
     msm = check_row_msm(dev, gen, MSM_SHAPES)
     fold = check_fold_evals(dev, gen, ROUND_CASES)
     fold.update(check_round_chains(dev, gen))
+    prod = check_cubic_prod(dev, gen)
     golden(dev)
-    summary = nizk_main_path(dev, LOG_N)
+    golden_snark(dev)
+    inst, vars_a, inputs_a, setup_s = make_instance(dev, LOG_N)
+    summary = nizk_main_path(dev, inst, vars_a, inputs_a, setup_s)
+    snark, prod_shapes = snark_main_path(dev, inst, vars_a, inputs_a)
+    prod_chain = check_product_layer_chain(dev, prod_shapes)
+    if (prod_chain["launches_per_prove"]
+            != snark["launches"]["prove"]["fold_evals_by_comb"]["cubic_prod"]):
+        raise AssertionError("the replay's launches differ from the prove's")
+    by_path = {
+        name: {"nizk_prove": summary["launches"][name],
+               "snark_encode": snark["launches"]["encode"][name],
+               "snark_prove": snark["launches"]["prove"][name]}
+        for name in ("row_msm", "fold_evals")}
+    timed = PROD_TIMED + ("fold_evals",)
     kernels = [
         dict(name="row_msm", route="cuda",
              source="spartan_tpu_torch/csrc/row_msm.cu",
              replaces="spartan_tpu/curve/pallas_msm.py:275",
              launches=summary["launches"]["row_msm"], library_ms=None,
-             **msm),
+             launches_by_path=by_path["row_msm"],
+             spark_shapes=snark["row_msm_on_spark_tables"], **msm),
         dict(name="fold_evals", route="cuda",
              source="spartan_tpu_torch/csrc/fold_evals.cu",
              replaces="spartan_tpu/ff/pallas_kernels.py:211",
              launches=summary["launches"]["fold_evals"], library_ms=None,
-             **fold),
+             launches_by_path=by_path["fold_evals"], **fold),
+        dict(name="fold_evals[cubic_prod, batched]", route="cuda",
+             source="spartan_tpu_torch/csrc/fold_evals.cu",
+             replaces="spartan_tpu/ff/pallas_kernels.py:211",
+             launches=snark["launches"]["prove"]["fold_evals_by_comb"][
+                 "cubic_prod"],
+             library_ms=None, shape=list(timed), modes=prod,
+             **prod["fold_evals"], **prod_chain),
     ]
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

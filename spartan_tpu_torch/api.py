@@ -1,9 +1,10 @@
-"""Public API: Instance / Assignment / NIZK — reference src/lib.rs.
+"""Public API: Instance / Assignment / SNARK / NIZK — reference src/lib.rs.
 
 The signatures are those of the JAX package's ``api.py`` plus a
 ``device=`` argument: ``None`` is the CUDA card (an error without one),
 ``"cpu"`` runs the plain PyTorch versions of the kernels.  An instance
-lives on one device; ``NIZK.prove`` runs there.
+lives on one device; ``SNARK.encode``, ``SNARK.prove`` and ``NIZK.prove``
+run there.
 
 Byte-level input conventions match the reference: assignments and matrix
 values are 32-byte little-endian canonical scalars; out-of-range bytes
@@ -19,6 +20,8 @@ import torch
 from .core.field import Q, from_bytes
 from .core.merlin import RandomTape, Transcript
 from .device import resolve
+from .r1cs.commit import (R1CSCommitment, R1CSCommitmentGens,
+                          R1CSDecommitment, R1CSEvalProof, commit_r1cs)
 from .r1cs.proof import R1CSGens, R1CSProof
 from .r1cs.shape import R1CSShape, _next_pow2
 from .utils.errors import ProofVerifyError, R1CSError
@@ -136,6 +139,109 @@ def _check_device(inst: "Instance", device) -> None:
     if device is not None and resolve(device) != inst.device:
         raise ValueError(f"the instance lies on {inst.device}, not on "
                          f"{resolve(device)}")
+
+
+class SNARKGens:
+    """lib.rs:277-311.  num_nz_entries: max nonzeros in any matrix."""
+
+    def __init__(self, num_cons: int, num_vars: int, num_inputs: int,
+                 num_nz_entries: int):
+        num_vars_padded = _next_pow2(max(num_vars, num_inputs + 1))
+        self.gens_r1cs_sat = R1CSGens(b"gens_r1cs_sat", num_cons,
+                                      num_vars_padded)
+        self.gens_r1cs_eval = R1CSCommitmentGens(
+            b"gens_r1cs_eval", num_cons, num_vars_padded, num_inputs,
+            num_nz_entries)
+
+
+class ComputationCommitment:
+    def __init__(self, comm: R1CSCommitment):
+        self.comm = comm
+
+
+class ComputationDecommitment:
+    def __init__(self, decomm: R1CSDecommitment):
+        self.decomm = decomm
+
+
+@dataclass
+class SNARK:
+    """lib.rs:313-465: proof with preprocessing (Spark commitment to the
+    R1CS matrices; sub-linear verifier)."""
+
+    r1cs_sat_proof: R1CSProof
+    inst_evals: tuple
+    r1cs_eval_proof: R1CSEvalProof
+
+    PROTOCOL = b"Spartan SNARK proof"
+
+    @staticmethod
+    def encode(inst: Instance, gens: SNARKGens, device=None):
+        """Commits the instance's matrices on its device (``device``, if
+        given, must name it)."""
+        _check_device(inst, device)
+        t = Timer("SNARK::encode")
+        comm, decomm = commit_r1cs(inst.inst, gens.gens_r1cs_eval)
+        t.stop()
+        return ComputationCommitment(comm), ComputationDecommitment(decomm)
+
+    @staticmethod
+    def prove(inst: Instance, comm: ComputationCommitment,
+              decomm: ComputationDecommitment, vars_a: Assignment,
+              inputs_a: Assignment, gens: SNARKGens,
+              transcript: Transcript, _tape_seed: int | None = None,
+              device=None) -> "SNARK":
+        """Proves on the instance's device (``device``, if given, must
+        name it)."""
+        _check_device(inst, device)
+        t = Timer("SNARK::prove")
+        tape = RandomTape(b"proof", seed=_tape_seed)
+        transcript.append_protocol_name(SNARK.PROTOCOL)
+        comm.comm.append_to_transcript(b"comm", transcript)
+
+        padded = _pad_vars(inst.inst, vars_a)
+        r1cs_sat_proof, rx, ry = R1CSProof.prove(
+            inst.inst, padded.assignment, inputs_a.assignment,
+            gens.gens_r1cs_sat, transcript, tape)
+
+        t_eval = Timer("eval_sparse_polys")
+        inst_evals = inst.inst.evaluate(rx, ry)
+        for label, e in zip((b"Ar_claim", b"Br_claim", b"Cr_claim"),
+                            inst_evals):
+            transcript.append_scalar(label, e)
+        t_eval.stop()
+
+        r1cs_eval_proof = R1CSEvalProof.prove(
+            decomm.decomm, rx, ry, inst_evals, gens.gens_r1cs_eval,
+            transcript, tape)
+        t.stop()
+        return SNARK(r1cs_sat_proof, inst_evals, r1cs_eval_proof)
+
+    def verify(self, comm: ComputationCommitment, inputs_a: Assignment,
+               transcript: Transcript, gens: SNARKGens, device=None) -> None:
+        """Host-side, apart from MSMs too large for the host, which run
+        on ``device`` (the card unless "cpu" is asked for)."""
+        dev = resolve(device)
+        t = Timer("SNARK::verify")
+        transcript.append_protocol_name(SNARK.PROTOCOL)
+        comm.comm.append_to_transcript(b"comm", transcript)
+
+        t_sat = Timer("verify_sat_proof")
+        if len(inputs_a.assignment) != comm.comm.num_inputs:
+            raise ProofVerifyError("wrong number of inputs")
+        rx, ry = self.r1cs_sat_proof.verify(
+            comm.comm.num_vars, comm.comm.num_cons, inputs_a.assignment,
+            self.inst_evals, transcript, gens.gens_r1cs_sat, dev)
+        t_sat.stop()
+
+        t_eval = Timer("verify_eval_proof")
+        for label, e in zip((b"Ar_claim", b"Br_claim", b"Cr_claim"),
+                            self.inst_evals):
+            transcript.append_scalar(label, e)
+        self.r1cs_eval_proof.verify(comm.comm, rx, ry, self.inst_evals,
+                                    gens.gens_r1cs_eval, transcript, dev)
+        t_eval.stop()
+        t.stop()
 
 
 class NIZKGens:

@@ -16,6 +16,7 @@ Device kernels carry their own copy of this arithmetic in
 
 from __future__ import annotations
 
+import math
 import time
 
 import torch
@@ -90,25 +91,48 @@ def sum16(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 # Storage layout (..., 8) int32
 # ---------------------------------------------------------------------------
 
+# Elements an elementwise operation of the storage layout handles at once.
+# The compute layout's temporaries (wide columns, REDC) take ~0.4 KB an
+# element, so a Spark table of 2^24 entries at once would hold ~7 GB.
+CHUNK = 1 << 21
+
+
+def _elementwise(fn, *xs) -> torch.Tensor:
+    """fn over the compute layout of ``xs`` (broadcast), in pieces of at
+    most CHUNK elements; the pieces' results are the whole's."""
+    shape = torch.broadcast_shapes(*(x.shape for x in xs))
+    n = math.prod(shape[:-1])
+    if n <= CHUNK:
+        return limb.pack(fn(*(limb.unpack(x) for x in xs)))
+    flat = [x.expand(shape).reshape(n, limb.NWORDS) for x in xs]
+    out = torch.empty((n, limb.NWORDS), dtype=torch.int32,
+                      device=xs[0].device)
+    for i in range(0, n, CHUNK):
+        out[i:i + CHUNK] = limb.pack(
+            fn(*(limb.unpack(f[i:i + CHUNK]) for f in flat)))
+    return out.reshape(shape)
+
+
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product: (aR)(bR)R^-1 = abR."""
-    return limb.pack(mul16(limb.unpack(a), limb.unpack(b)))
+    return _elementwise(mul16, a, b)
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return limb.pack(add16(limb.unpack(a), limb.unpack(b)))
+    return _elementwise(add16, a, b)
 
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return limb.pack(sub16(limb.unpack(a), limb.unpack(b)))
+    return _elementwise(sub16, a, b)
 
 
 def to_mont(a: torch.Tensor) -> torch.Tensor:
-    return limb.pack(mul16(limb.unpack(a), limb.const16(R2_INT, a.device)))
+    r2 = limb.const16(R2_INT, a.device)
+    return _elementwise(lambda x: mul16(x, r2), a)
 
 
 def from_mont(a: torch.Tensor) -> torch.Tensor:
-    return limb.pack(redc16(limb.unpack(a)))
+    return _elementwise(redc16, a)
 
 
 def reduce_wide(w: torch.Tensor) -> torch.Tensor:
@@ -122,8 +146,20 @@ def sum_mod(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 
 def dot_mod(a: torch.Tensor, b: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """<a, b> mod q along ``dim`` (Montgomery in, Montgomery out)."""
-    return limb.pack(sum16(mul16(limb.unpack(a), limb.unpack(b)), dim))
+    """<a, b> mod q along ``dim`` of the elements (broadcast; Montgomery
+    in, Montgomery out).  The products go in pieces of at most CHUNK
+    elements along ``dim``, summed as integers and reduced once."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    dim %= len(shape) - 1
+    size = shape[dim]
+    step = max(1, CHUNK * size // max(1, math.prod(shape[:-1])))
+    a, b = a.expand(shape), b.expand(shape)
+    acc = 0
+    for i in range(0, size, step):
+        k = min(step, size - i)
+        acc = acc + mul16(limb.unpack(a.narrow(dim, i, k)),
+                          limb.unpack(b.narrow(dim, i, k))).sum(dim)
+    return limb.pack(reduce_wide16(acc))
 
 
 # ---------------------------------------------------------------------------

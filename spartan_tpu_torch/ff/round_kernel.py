@@ -8,7 +8,10 @@ wrapped by ``fold_evals_pairs``/``fold_evals``), whose dataflow is the
 JAX prover's round step (``protocols/sumcheck.py::_fold_then_evals``).
 
 ``tables`` are 2 (quad comb A*B) or 4 (cubic comb A*(B*C - D)) ``(n, 8)``
-int32 Montgomery tables of one power-of-two size.  Modes:
+int32 Montgomery tables of one power-of-two size, or 3 (cubic_prod comb
+A*B*C) ``(B, n, 8)`` tables: B instances, each folded and evaluated on
+its own (the product-tree layers' batched round, the JAX package's
+``protocols/product_tree.py:33-113``).  Modes:
 
 * ``"evals"``: round 0 — evals of the round polynomial over the tables;
 * ``"fold_evals"``: bind the top variable to ``r`` (F[j] = T[j] +
@@ -17,12 +20,13 @@ int32 Montgomery tables of one power-of-two size.  Modes:
 
 Returns ``(tables_out, evals)``: the folded tables (the inputs in
 ``"evals"`` mode) and a ``(3, 8)`` Montgomery tensor of the evals at
-X = 0, 2, 3 (X = 3 is zero for the quad comb; ``None`` in ``"fold"``
-mode).
+X = 0, 2, 3 (X = 3 is zero for the quad comb; ``(3, B, 8)``, one column
+an instance, for the batched comb; ``None`` in ``"fold"`` mode).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -36,7 +40,7 @@ MODES = {"evals": 0, "fold_evals": 1, "fold": 2}
 BLOCK = 128  # threads per block of the CUDA kernel
 BLOCKS_PER_SM = 4  # the kernel's __launch_bounds__ residency
 _PARTIAL_WORDS = 27  # a block's three 9-word sums
-_WHICH = {2: "quad", 4: "cubic"}
+_WHICH = {2: "quad", 3: "cubic_prod", 4: "cubic"}
 
 
 class _FqArg(ctypes.Structure):
@@ -46,17 +50,20 @@ class _FqArg(ctypes.Structure):
 def _declare(lib) -> None:
     p = ctypes.c_void_p
     lib.fold_evals_launch.argtypes = (
-        [p] * 8 + [ctypes.c_int, ctypes.c_long, ctypes.c_int, _FqArg,
-                   ctypes.c_int, p, p, p, p])
+        [p] * 8 + [ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                   _FqArg, ctypes.c_int, p, p, p, p])
     lib.fold_evals_launch.restype = ctypes.c_int
 
 
-def _grid(n: int, mode: str, device) -> int:
-    """Blocks of the launch: one full wave (BLOCKS_PER_SM a multiprocessor)
-    striding over the pairs, fewer when there are fewer pairs."""
+def _grid(batch: int, n: int, mode: str, device) -> int:
+    """Blocks of the launch, ``batch`` times the blocks of one instance:
+    together about one full wave (BLOCKS_PER_SM a multiprocessor)
+    striding over the pairs, fewer when there are fewer pairs, and at
+    least one an instance."""
     pairs = n // 4 if mode == "fold_evals" else n // 2
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(BLOCKS_PER_SM * sms, -(-pairs // BLOCK)))
+    per = max(1, min(BLOCKS_PER_SM * sms // batch, -(-pairs // BLOCK)))
+    return batch * per
 
 
 def fold_evals_plain(tables, r: int | None, mode: str):
@@ -69,8 +76,9 @@ def fold_evals_plain(tables, r: int | None, mode: str):
     out = list(tables)
     if mode != "evals":
         rm = limb.unpack(fq.mont_limbs(r, tables[0].device))
-        m = T[0].shape[0] // 2
-        T = [fq.add16(t[:m], fq.mul16(rm, fq.sub16(t[m:], t[:m])))
+        m = T[0].shape[-2] // 2
+        T = [fq.add16(t[..., :m, :],
+                      fq.mul16(rm, fq.sub16(t[..., m:, :], t[..., :m, :])))
              for t in T]
         out = [limb.pack(t) for t in T]
         if mode == "fold":
@@ -83,30 +91,40 @@ def fold_evals_plain(tables, r: int | None, mode: str):
 fold_evals_plain.cuda_calls = 0
 
 
-def _check(tables, r, mode: str) -> int:
+def _check(tables, r, mode: str) -> tuple[int, int]:
+    """(batch, n) of valid arguments; raises on anything else."""
     if mode not in MODES:
         raise ValueError(f"fold_evals: unknown mode {mode!r}")
     if (r is None) != (mode == "evals"):
         raise ValueError(f"fold_evals: mode {mode!r} takes "
                          f"{'no' if mode == 'evals' else 'a'} challenge")
-    if len(tables) not in (2, 4):
-        raise ValueError(f"fold_evals: 2 or 4 tables, got {len(tables)}")
-    n = tables[0].shape[0]
+    if len(tables) not in _WHICH:
+        raise ValueError(f"fold_evals: 2, 3 or 4 tables, got {len(tables)}")
+    batched = len(tables) == 3
+    shape = tables[0].shape
+    if len(shape) != 2 + batched or shape[-1] != limb.NWORDS:
+        raise ValueError(f"fold_evals: {len(tables)} tables must be "
+                         f"{'(B, n, 8)' if batched else '(n, 8)'}, got "
+                         f"{tuple(shape)}")
     for t in tables:
-        if (t.shape != (n, limb.NWORDS) or t.dtype != torch.int32
+        if (t.shape != shape or t.dtype != torch.int32
                 or t.device != tables[0].device):
-            raise ValueError("fold_evals: tables must be (n, 8) int32 of "
-                             "one size on one device")
+            raise ValueError("fold_evals: tables must be int32 of one shape "
+                             "on one device")
+    batch, n = (shape[0] if batched else 1), shape[-2]
     least = 4 if mode == "fold_evals" else 2
-    if n < least or n & (n - 1):
+    if n < least or n & (n - 1) or batch < 1:
         raise ValueError(f"fold_evals: mode {mode!r} needs a power-of-two "
-                         f"size >= {least}, got {n}")
-    return n
+                         f"size >= {least} and an instance, got "
+                         f"{tuple(shape)}")
+    return batch, n
 
 
 def fold_evals(tables, r: int | None, mode: str):
-    """Kernel B2 on the card, its plain version on the CPU."""
-    n = _check(tables, r, mode)
+    """Kernel B2 on the card, its plain version on the CPU.  Launches are
+    counted in ``fold_evals.launches``, a Counter keyed by (comb, batch,
+    n, mode)."""
+    batch, n = _check(tables, r, mode)
     dev = tables[0].device
     if dev.type == "cpu":
         return fold_evals_plain(tables, r, mode)
@@ -114,10 +132,10 @@ def fold_evals(tables, r: int | None, mode: str):
         raise ValueError(f"fold_evals: unsupported device {dev}")
     lib = _build.load("fold_evals", _declare)
     ins = [t.contiguous() for t in tables]
-    outs = ([torch.empty((n // 2, limb.NWORDS), dtype=torch.int32,
-                         device=dev) for _ in ins]
+    half = (*tables[0].shape[:-2], n // 2, limb.NWORDS)
+    outs = ([torch.empty(half, dtype=torch.int32, device=dev) for _ in ins]
             if mode != "evals" else [])
-    nblocks = _grid(n, mode, dev)
+    nblocks = _grid(batch, n, mode, dev)
     partial = ticket = evals = None
     if mode != "fold":
         # the blocks' partial sums, then the zeroed counter by which the
@@ -126,7 +144,8 @@ def fold_evals(tables, r: int | None, mode: str):
         scratch = torch.zeros(nblocks * _PARTIAL_WORDS + 1,
                               dtype=torch.int32, device=dev)
         partial, ticket = scratch[:-1], scratch[-1:]
-        evals = torch.empty((3, limb.NWORDS), dtype=torch.int32, device=dev)
+        evals = torch.empty((3, *tables[0].shape[:-2], limb.NWORDS),
+                            dtype=torch.int32, device=dev)
     rarg = _FqArg()
     if r is not None:
         rm = (r % Q) * fq.R % Q
@@ -140,11 +159,12 @@ def fold_evals(tables, r: int | None, mode: str):
         return t.data_ptr() if t is not None else None
 
     rc = lib.fold_evals_launch(
-        *ptrs(ins), *ptrs(outs), len(ins), n, MODES[mode], rarg, nblocks,
-        ptr(partial), ptr(ticket), ptr(evals), _build.stream_handle(dev))
-    fold_evals.launches += 1
+        *ptrs(ins), *ptrs(outs), len(ins), n, batch, MODES[mode], rarg,
+        nblocks, ptr(partial), ptr(ticket), ptr(evals),
+        _build.stream_handle(dev))
+    fold_evals.launches[_WHICH[len(ins)], batch, n, mode] += 1
     _build.check(rc, "fold_evals")
     return (outs if mode != "evals" else ins), evals
 
 
-fold_evals.launches = 0
+fold_evals.launches = collections.Counter()

@@ -15,6 +15,7 @@ import torch
 from .core.field import Q
 from .curve import edwards as ed
 from .ff import fp25519, fq, limb
+from .protocols import spark
 from .r1cs.shape import R1CSShape, SparseMatPolynomial, _log2
 
 
@@ -61,3 +62,15 @@ def shape_from_jax(num_cons: int, num_vars: int, num_inputs: int,
     npx, npy = _log2(num_cons), _log2(2 * num_vars)
     A, B, C = (sparse_from_jax(npx, npy, r, c, v, device) for r, c, v in mats)
     return R1CSShape(num_cons, num_vars, num_inputs, A, B, C)
+
+
+def dense_rep_from_jax(row, col, val, batch_size: int,
+                       device=None) -> spark.MultiSparseMatPolynomialAsDense:
+    """A JAX ``MultiSparseMatPolynomialAsDense``: ``row`` and ``col`` are
+    its ``AddrTimestamps``' ``(ops_addr_int, read_ts_int, audit_ts_int)``
+    numpy arrays, ``val`` its ``(B, N, 16)`` Montgomery values -> the
+    port's (its Montgomery tables and combined tables built here)."""
+    row_t, col_t = (spark.AddrTimestamps(*(np.asarray(a) for a in t),
+                                         device) for t in (row, col))
+    return spark.MultiSparseMatPolynomialAsDense(
+        batch_size, row_t, col_t, fq_from_jax(val, device))

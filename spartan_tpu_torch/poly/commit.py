@@ -15,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..commitments import commit_scalar
 from ..core import ristretto as hri
 from ..core.field import Q
 from ..core.merlin import RandomTape, Transcript
@@ -106,14 +107,18 @@ class PolyEvalProof:
         L_ints = _eq_evals_host(r[:left])
         R_ints = _eq_evals_host(r[left:])
 
+        t = Timer("polyeval::bound_L")
         L_dev = dense.from_ints(L_ints, Z.device)
         LZ = dense.bound_L(Z, L_dev)  # (R_size, 8)
+        t.stop()
         LZ_blind = sum(b * l for b, l in zip(blinds, L_ints)) % Q
 
+        t = Timer("polyeval::dotproduct_log")
         R_dev = dense.from_ints(R_ints, Z.device)
         proof, _Cx, C_Zr_prime = DotProductProofLog.prove(
             gens.gens, transcript, tape, LZ, LZ_blind,
             R_dev, R_ints, Zr, blind_Zr)
+        t.stop()
         return PolyEvalProof(proof), C_Zr_prime
 
     def verify(self, gens: PolyCommitmentGens, transcript: Transcript,
@@ -133,6 +138,13 @@ class PolyEvalProof:
         C_LZ = hri.encode(dmsm.vmsm(L_ints, C_pts, device))
         self.proof.verify(len(R_ints), gens.gens, transcript, R_ints,
                           C_LZ, C_Zr, device)
+
+    def verify_plain(self, gens: PolyCommitmentGens, transcript: Transcript,
+                     r: list[int], Zr: int, comm: PolyCommitment,
+                     device=None) -> None:
+        """verify against a claimed value in the clear (blind 0)."""
+        C_Zr = hri.encode(commit_scalar(Zr, 0, gens.gens.gens_1))
+        self.verify(gens, transcript, r, C_Zr, comm, device)
 
 
 def _eq_evals_host(r: list[int]) -> list[int]:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.field import Q
 from ..ff import fq, limb
 
 
@@ -24,6 +25,14 @@ def eq_evals(r: list[int], device=None) -> torch.Tensor:
         lo = fq.sub16(t, hi)
         t = torch.stack([lo, hi], dim=1).reshape(-1, limb.NLIMBS)
     return limb.pack(t)
+
+
+def eq_evaluate(r: list[int], rx: list[int]) -> int:
+    """eq(r, rx) on the host (dense_mlpoly.rs:59-66)."""
+    acc = 1
+    for a, b in zip(r, rx):
+        acc = acc * ((a * b + (1 - a) * (1 - b)) % Q) % Q
+    return acc
 
 
 def bound_var_top(Z: torch.Tensor, r: int) -> torch.Tensor:
@@ -46,15 +55,22 @@ def evaluate(Z: torch.Tensor, r: list[int]) -> int:
 def bound_L(Z: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """Matrix-view row combination (dense_mlpoly.rs:206-213): Z viewed as
     (L_size, R_size); returns LZ[i] = sum_j L[j] Z[j, i]."""
-    Ls = L.shape[0]
-    Zm = limb.unpack(Z).reshape(Ls, -1, limb.NLIMBS)
-    prod = fq.mul16(Zm, limb.unpack(L)[:, None, :])
-    return limb.pack(fq.sum16(prod, dim=0))
+    Zm = Z.reshape(L.shape[0], -1, limb.NWORDS)
+    return fq.dot_mod(Zm, L[:, None, :], dim=0)
 
 
 def factored_lens(ell: int) -> tuple[int, int]:
     """compute_factored_lens (dense_mlpoly.rs:86-88)."""
     return ell // 2, ell - ell // 2
+
+
+def merge_pad(polys: list[torch.Tensor]) -> torch.Tensor:
+    """DensePolynomial::merge (dense_mlpoly.rs:258-272): concatenate and
+    zero-pad to the next power of two."""
+    n = sum(p.shape[0] for p in polys)
+    target = 1 << (n - 1).bit_length() if n > 1 else 1
+    pad = polys[0].new_zeros((target - n, limb.NWORDS))
+    return torch.cat([*polys, pad])
 
 
 def from_ints(xs: list[int], device=None) -> torch.Tensor:

@@ -1,4 +1,6 @@
-"""ZK sum-check (reference src/sumcheck.rs:64-179,427-776).
+"""Sum-check (reference src/sumcheck.rs): the ZK variant of the NIZK
+path (sumcheck.rs:64-179,427-776) and the clear-text variant of the
+SNARK's product layers (sumcheck.rs:18-61,183-252).
 
 Per round the prover reads the round polynomial's evaluations at
 {0,2,3} from the device, the host commits the polynomial, absorbs it
@@ -9,8 +11,10 @@ challenge fused with the next round's evaluations.  A phase of k rounds
 is 1 + (k - 1) + 1 launches: evals only, then fold-and-evals, then the
 last fold.  Tables stay in the normal (half-pair) layout throughout.
 
-Only the zero-knowledge variant is on the NIZK path; the clear-text
-``SumcheckInstanceProof`` belongs to the SNARK slice.
+The clear-text ``SumcheckInstanceProof`` sends the round polynomials
+as they are.  Its rounds over the comb A*B*C (``prove_cubic_batched``,
+the product-tree layers' rounds; ``prove_cubic`` is its one-instance
+case) run through kernel B2's batched 3-table mode.
 """
 
 from __future__ import annotations
@@ -30,6 +34,79 @@ from ..poly.unipoly import UniPoly
 from ..utils.errors import ProofVerifyError
 from . import _combs
 from .sigma import DotProductProof, _decompress
+
+
+@dataclass
+class SumcheckInstanceProof:
+    compressed_polys: list  # list[list[int]]
+
+    def verify(self, claim: int, num_rounds: int, degree_bound: int,
+               transcript: Transcript) -> tuple[int, list[int]]:
+        """sumcheck.rs:18-61.  Returns (the last round's claim, the
+        challenges)."""
+        if (len(self.compressed_polys) != num_rounds
+                or any(len(c) != degree_bound
+                       for c in self.compressed_polys)):
+            raise ProofVerifyError("wrong number of rounds or coefficients")
+        e = claim % Q
+        r = []
+        for coeffs in self.compressed_polys:
+            poly = UniPoly.decompress(coeffs, e)
+            if poly.degree() != degree_bound:
+                raise ProofVerifyError("degree bound violated")
+            if (poly.eval_at_zero() + poly.eval_at_one()) % Q != e:
+                raise ProofVerifyError("sum claim mismatch")
+            poly.append_to_transcript(b"poly", transcript)
+            r_i = transcript.challenge_scalar(b"challenge_nextround")
+            r.append(r_i)
+            e = poly.evaluate(r_i)
+        return e, r
+
+    @staticmethod
+    def prove_cubic(claim: int, num_rounds: int, polys: list[torch.Tensor],
+                    transcript: Transcript
+                    ) -> tuple["SumcheckInstanceProof", list[int], list[int]]:
+        """prove_cubic with comb = A*B*C (sumcheck.rs:183-252); ``polys``
+        = [A, B, C], (n, 8) tables, n = 2^num_rounds.  Returns (proof,
+        challenges, the three final claims): the one-instance case of
+        ``prove_cubic_batched``."""
+        proof, r, tables = SumcheckInstanceProof.prove_cubic_batched(
+            claim, num_rounds, [t[None] for t in polys], [1], transcript)
+        claims = fq.decode_to_ints(torch.cat([t[:, 0] for t in tables]))
+        return proof, r, claims
+
+    @staticmethod
+    def prove_cubic_batched(claim: int, num_rounds: int,
+                            tables: list[torch.Tensor], coeffs: list[int],
+                            transcript: Transcript
+                            ) -> tuple["SumcheckInstanceProof", list[int],
+                                       list[torch.Tensor]]:
+        """prove_cubic_batched (sumcheck.rs:254-424) over the comb A*B*C
+        of B instances: ``tables`` = [A, B, C], (B, n, 8), n =
+        2^num_rounds; instance b's round polynomial enters with weight
+        ``coeffs[b]``.  One launch of kernel B2's batched mode a round,
+        its (3, B) evals fetched at once.  Returns (proof, challenges,
+        the bound (B, 1, 8) tables)."""
+        e = claim % Q
+        r: list[int] = []
+        compressed = []
+        if num_rounds:
+            tables, ev = fold_evals(tables, None, "evals")
+        for j in range(num_rounds):
+            flat = fq.decode_to_ints(ev)
+            nb = len(flat) // 3
+            e0, e2, e3 = (sum(c * v for c, v in
+                              zip(coeffs, flat[i * nb:(i + 1) * nb])) % Q
+                          for i in range(3))
+            poly = UniPoly.from_evals([e0, (e - e0) % Q, e2, e3])
+            poly.append_to_transcript(b"poly", transcript)
+            r_j = transcript.challenge_scalar(b"challenge_nextround")
+            r.append(r_j)
+            mode = "fold_evals" if j + 1 < num_rounds else "fold"
+            tables, ev = fold_evals(tables, r_j, mode)
+            e = poly.evaluate(r_j)
+            compressed.append(poly.compress())
+        return SumcheckInstanceProof(compressed), r, tables
 
 
 @dataclass

@@ -51,6 +51,11 @@ class SparseMatPolynomial:
     def nnz(self) -> int:
         return int(self._rows_np.shape[0])
 
+    def get_num_nz_entries(self) -> int:
+        """nnz rounded up to a power of two (at least 1)."""
+        n = max(self.nnz, 1)
+        return 1 << (n - 1).bit_length()
+
     def entries_ints(self) -> list[tuple[int, int, int]]:
         return list(zip(self._rows_np.tolist(), self._cols_np.tolist(),
                         self._vals_ints))

@@ -1,4 +1,5 @@
-"""Binary (de)serialization of the NIZK proof — the analogue of the
+"""Binary (de)serialization of the NIZK and SNARK proofs and of the SNARK's
+computation commitment — the analogue of the
 reference's serde+bincode derive on its proof types (reference
 src/lib.rs:45-57,489), byte-compatible with the JAX package's
 ``serialize.py``.
@@ -14,8 +15,6 @@ Wire format (bincode fixint, little-endian):
   point       32 bytes compressed ristretto
   list<T>     u64 count + items
   struct      fields in declaration order
-
-The SNARK codecs belong to the SNARK slice of the port.
 """
 
 from __future__ import annotations
@@ -32,7 +31,14 @@ from .protocols.sigma import (
     KnowledgeProof,
     ProductProof,
 )
-from .protocols.sumcheck import ZKSumcheckInstanceProof
+from .protocols.product_tree import (LayerProofBatched,
+                                     ProductCircuitEvalProofBatched)
+from .protocols.spark import (DerefsCommitment, DerefsEvalProof,
+                              HashLayerProof, PolyEvalNetworkProof,
+                              ProductLayerProof, SparseMatPolyCommitment,
+                              SparseMatPolyEvalProof)
+from .protocols.sumcheck import SumcheckInstanceProof, ZKSumcheckInstanceProof
+from .r1cs.commit import R1CSCommitment, R1CSEvalProof
 from .r1cs.proof import R1CSProof
 from .utils.errors import ProofDeserializeError
 
@@ -183,6 +189,16 @@ def _r_polycommitment(r: Reader) -> PolyCommitment:
     return PolyCommitment(r.points())
 
 
+def _w_sumcheck(w: Writer, p: SumcheckInstanceProof):
+    w.u64(len(p.compressed_polys))
+    for coeffs in p.compressed_polys:
+        w.scalars(coeffs)
+
+
+def _r_sumcheck(r: Reader) -> SumcheckInstanceProof:
+    return SumcheckInstanceProof([r.scalars() for _ in range(r.u64())])
+
+
 def _w_zk_sumcheck(w: Writer, p: ZKSumcheckInstanceProof):
     w.points(p.comm_polys)
     w.points(p.comm_evals)
@@ -231,6 +247,115 @@ def _r_r1cs_proof(r: Reader) -> R1CSProof:
 
 
 # ---------------------------------------------------------------------------
+# Spark / SNARK eval proof
+# ---------------------------------------------------------------------------
+
+def _w_layer_proof(w: Writer, p: LayerProofBatched):
+    _w_sumcheck(w, p.proof)
+    w.scalars(p.claims_prod_left)
+    w.scalars(p.claims_prod_right)
+
+
+def _r_layer_proof(r: Reader) -> LayerProofBatched:
+    return LayerProofBatched(_r_sumcheck(r), r.scalars(), r.scalars())
+
+
+def _w_prod_circuit_proof(w: Writer, p: ProductCircuitEvalProofBatched):
+    w.u64(len(p.proof))
+    for lp in p.proof:
+        _w_layer_proof(w, lp)
+    for claims in p.claims_dotp:
+        w.scalars(claims)
+
+
+def _r_prod_circuit_proof(r: Reader) -> ProductCircuitEvalProofBatched:
+    layers = [_r_layer_proof(r) for _ in range(r.u64())]
+    dl, dr, dw = r.scalars(), r.scalars(), r.scalars()
+    return ProductCircuitEvalProofBatched(layers, (dl, dr, dw))
+
+
+def _w_product_layer_proof(w: Writer, p: ProductLayerProof):
+    for four in (p.eval_row, p.eval_col):
+        init, read, write, audit = four
+        w.scalar(init); w.scalars(read); w.scalars(write); w.scalar(audit)
+    left, right = p.eval_val
+    w.scalars(left); w.scalars(right)
+    _w_prod_circuit_proof(w, p.proof_mem)
+    _w_prod_circuit_proof(w, p.proof_ops)
+
+
+def _r_product_layer_proof(r: Reader) -> ProductLayerProof:
+    fours = []
+    for _ in range(2):
+        init = r.scalar(); read = r.scalars()
+        write = r.scalars(); audit = r.scalar()
+        fours.append((init, read, write, audit))
+    eval_val = (r.scalars(), r.scalars())
+    proof_mem = _r_prod_circuit_proof(r)
+    proof_ops = _r_prod_circuit_proof(r)
+    return ProductLayerProof(fours[0], fours[1], eval_val, proof_mem,
+                             proof_ops)
+
+
+def _w_hash_layer_proof(w: Writer, p: HashLayerProof):
+    for three in (p.eval_row, p.eval_col):
+        addr, read_ts, audit_ts = three
+        w.scalars(addr); w.scalars(read_ts); w.scalar(audit_ts)
+    w.scalars(p.eval_val)
+    row_ops, col_ops = p.eval_derefs
+    w.scalars(row_ops); w.scalars(col_ops)
+    _w_polyeval(w, p.proof_ops)
+    _w_polyeval(w, p.proof_mem)
+    _w_polyeval(w, p.proof_derefs.proof_derefs)
+
+
+def _r_hash_layer_proof(r: Reader) -> HashLayerProof:
+    threes = [(r.scalars(), r.scalars(), r.scalar()) for _ in range(2)]
+    eval_val = r.scalars()
+    eval_derefs = (r.scalars(), r.scalars())
+    proof_ops = _r_polyeval(r)
+    proof_mem = _r_polyeval(r)
+    proof_derefs = DerefsEvalProof(_r_polyeval(r))
+    return HashLayerProof(threes[0], threes[1], eval_val, eval_derefs,
+                          proof_ops, proof_mem, proof_derefs)
+
+
+def _w_sparse_eval_proof(w: Writer, p: SparseMatPolyEvalProof):
+    _w_polycommitment(w, p.comm_derefs.comm_ops_val)
+    _w_product_layer_proof(w, p.poly_eval_network_proof.proof_prod_layer)
+    _w_hash_layer_proof(w, p.poly_eval_network_proof.proof_hash_layer)
+
+
+def _r_sparse_eval_proof(r: Reader) -> SparseMatPolyEvalProof:
+    comm_derefs = DerefsCommitment(_r_polycommitment(r))
+    prod = _r_product_layer_proof(r)
+    hashp = _r_hash_layer_proof(r)
+    return SparseMatPolyEvalProof(
+        comm_derefs, PolyEvalNetworkProof(prod, hashp))
+
+
+# ---------------------------------------------------------------------------
+# the SNARK's computation commitment (shipped to verifiers)
+# ---------------------------------------------------------------------------
+
+def _w_r1cs_commitment(w: Writer, c: R1CSCommitment):
+    w.u64(c.num_cons); w.u64(c.num_vars); w.u64(c.num_inputs)
+    w.u64(c.comm.batch_size); w.u64(c.comm.num_ops)
+    w.u64(c.comm.num_mem_cells)
+    _w_polycommitment(w, c.comm.comm_comb_ops)
+    _w_polycommitment(w, c.comm.comm_comb_mem)
+
+
+def _r_r1cs_commitment(r: Reader) -> R1CSCommitment:
+    num_cons, num_vars, num_inputs = r.u64(), r.u64(), r.u64()
+    batch_size, num_ops, num_mem_cells = r.u64(), r.u64(), r.u64()
+    comm = SparseMatPolyCommitment(
+        batch_size, num_ops, num_mem_cells,
+        _r_polycommitment(r), _r_polycommitment(r))
+    return R1CSCommitment(num_cons, num_vars, num_inputs, comm)
+
+
+# ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
@@ -252,3 +377,39 @@ def nizk_from_bytes(data: bytes):
     ry = r.scalars()
     r.done()
     return NIZK(proof, (rx, ry))
+
+
+def snark_to_bytes(snark) -> bytes:
+    w = Writer()
+    _w_r1cs_proof(w, snark.r1cs_sat_proof)
+    for e in snark.inst_evals:
+        w.scalar(e)
+    _w_sparse_eval_proof(w, snark.r1cs_eval_proof.proof)
+    return w.getvalue()
+
+
+def snark_from_bytes(data: bytes):
+    from .api import SNARK
+
+    r = Reader(data)
+    proof = _r_r1cs_proof(r)
+    inst_evals = tuple(r.scalar() for _ in range(3))
+    evalp = R1CSEvalProof(_r_sparse_eval_proof(r))
+    r.done()
+    return SNARK(proof, inst_evals, evalp)
+
+
+def commitment_to_bytes(comm) -> bytes:
+    """ComputationCommitment -> bytes (lib.rs:278-303)."""
+    w = Writer()
+    _w_r1cs_commitment(w, comm.comm)
+    return w.getvalue()
+
+
+def commitment_from_bytes(data: bytes):
+    from .api import ComputationCommitment
+
+    r = Reader(data)
+    c = _r_r1cs_commitment(r)
+    r.done()
+    return ComputationCommitment(c)

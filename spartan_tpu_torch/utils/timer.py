@@ -4,7 +4,9 @@ reference's `profile` cargo feature); no-ops otherwise.
 
 Under profiling, ``stop`` first waits for queued CUDA work, so a phase's
 time includes its device work; without it nothing synchronises.  The
-last elapsed time of each label is kept in ``records`` either way."""
+last elapsed time of each label is kept in ``records`` either way, and
+the sum over its spans in ``totals`` (for spans that repeat within a
+phase; a caller clears it where its count starts)."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ _ENABLED = os.environ.get("SPARTAN_TPU_PROFILE", "0") not in ("", "0")
 _DEPTH = 0
 
 records: dict[str, float] = {}
+totals: dict[str, float] = {}
 
 
 def _sync() -> None:
@@ -43,6 +46,7 @@ class Timer:
             _sync()
         elapsed = time.perf_counter() - self.start
         records[self.label] = elapsed
+        totals[self.label] = totals.get(self.label, 0.0) + elapsed
         if _ENABLED:
             from . import rt
 

@@ -43,7 +43,7 @@ def _elems(n, seed, device):
 
 
 @pytest.mark.parametrize("L,R", [(4, 16), (3, 20), (2, 24), (1024, 1),
-                                 (1024, 1024), (1, 4096)])
+                                 (1024, 1024), (1, 4096), (8, 4096)])
 def test_row_msm_kernel_vs_plain(dev, L, R):
     tab = MultiCommitGens(R, b"cuda_test").msm_table(dev)
     s = _elems(L * R, L + R, dev).reshape(L, R, 8)
@@ -99,6 +99,63 @@ def test_fold_evals_kernel_on_two_streams(dev):
     for tabs, evals in zip(sets, got):
         want = rk.fold_evals_plain(tabs, None, "evals")[1]
         assert all(torch.equal(e, want) for e in evals)
+
+
+@pytest.mark.parametrize("batch,n", [(2, 4), (6, 64), (18, 4096)])
+@pytest.mark.parametrize("mode", ["evals", "fold_evals", "fold"])
+def test_fold_evals_batched_kernel_vs_plain(dev, batch, n, mode):
+    """The batched 3-table (cubic_prod) mode of the product layers."""
+    tabs = [_elems(batch * n, 7 * n + t, dev).reshape(batch, n, 8)
+            for t in range(3)]
+    r = None if mode == "evals" else Q - 2
+    got_t, got_e = rk.fold_evals(tabs, r, mode)
+    want_t, want_e = rk.fold_evals_plain(tabs, r, mode)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got_t, want_t))
+    if mode == "fold":
+        assert got_e is None and want_e is None
+    else:
+        assert got_e.shape == (3, batch, 8)
+        assert torch.equal(got_e, want_e)
+
+
+def test_fold_evals_batched_kernel_on_two_streams(dev):
+    sets = [[_elems(18 * 4096, 300 * k + t, dev).reshape(18, 4096, 8)
+             for t in range(3)] for k in range(2)]
+    streams = [torch.cuda.Stream() for _ in sets]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[] for _ in sets]
+    for _ in range(8):
+        for k, (tabs, s) in enumerate(zip(sets, streams)):
+            with torch.cuda.stream(s):
+                got[k].append(rk.fold_evals(tabs, 12345, "fold_evals")[1])
+    torch.cuda.synchronize()
+    for tabs, evals in zip(sets, got):
+        want = rk.fold_evals_plain(tabs, 12345, "fold_evals")[1]
+        assert all(torch.equal(e, want) for e in evals)
+
+
+def test_golden_snark_on_the_card(dev):
+    import os
+
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import SNARK, Instance, SNARKGens
+    from spartan_tpu_torch.core.merlin import Transcript
+
+    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
+        16, 16, 2, seed=424242, device=dev)
+    gens = SNARKGens(16, 16, 2, 16)
+    comm, decomm = SNARK.encode(inst, gens)
+    snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,
+                        Transcript(b"golden_snark"), _tape_seed=31337)
+    golden = os.path.join(os.path.dirname(__file__), "golden")
+    for name, blob in (("snark_commitment.bin",
+                        ser.commitment_to_bytes(comm)),
+                       ("snark_proof.bin", ser.snark_to_bytes(snark))):
+        with open(os.path.join(golden, name), "rb") as f:
+            assert blob == f.read(), name
+    snark.verify(comm, inputs_a, Transcript(b"golden_snark"), gens)
 
 
 def test_golden_nizk_on_the_card(dev):

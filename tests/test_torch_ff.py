@@ -85,6 +85,39 @@ def test_fq_sums_and_reduce_wide():
     assert got == [x % Q for x in w]
 
 
+@pytest.mark.parametrize("op", ["mul", "add", "sub", "to_mont",
+                                "from_mont", "dot0", "dot1"])
+def test_fq_in_pieces(monkeypatch, op):
+    """With pieces of 7 elements, the storage-layout operations and the
+    dot product along either axis (broadcast, as bound_L and Spark's
+    batched evaluation call it) still equal python ints."""
+    monkeypatch.setattr(fq, "CHUNK", 7)
+    xs, ys = _scalars(11, n=35), _scalars(12, n=35)  # 40 each
+    a, b = fq.encode_ints(xs), fq.encode_ints(ys)
+    if op in ("dot0", "dot1"):
+        M_ = a.reshape(5, 8, 8)  # M_[i][j] = xs[8 i + j]
+        if op == "dot0":  # sum_i ys[i] M_[i, j], ys[i] broadcast over j
+            got = fq.dot_mod(M_, b[:5, None, :], dim=0)
+            want = [sum(ys[i] * xs[8 * i + j] for i in range(5)) % Q
+                    for j in range(8)]
+        else:  # sum_j M_[i, j] ys[j], ys broadcast over i
+            got = fq.dot_mod(M_, b[:8], dim=1)
+            want = [sum(xs[8 * i + j] * ys[j] for j in range(8)) % Q
+                    for i in range(5)]
+        assert fq.decode_to_ints(got) == want
+        return
+    if op in ("to_mont", "from_mont"):
+        c = limb.ints_to_limbs(xs)
+        got = limb.limbs_to_ints(getattr(fq, op)(c))
+        f = R if op == "to_mont" else R_INV
+        assert got == [x * f % Q for x in xs]
+        return
+    ref = {"mul": lambda x, y: x * y, "add": lambda x, y: x + y,
+           "sub": lambda x, y: x - y}[op]
+    assert fq.decode_to_ints(getattr(fq, op)(a, b)) == [
+        ref(x, y) % Q for x, y in zip(xs, ys)]
+
+
 @pytest.mark.parametrize("op", ["mul16", "add16", "sub16"])
 def test_fp_lazy_ops(op):
     """Lazy mod-p ops keep every limb below 2^16 + 64 and the residue
