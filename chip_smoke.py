@@ -4,7 +4,7 @@ and check it end to end.
 
     python3 chip_smoke.py
 
-In order: the card's name and power limit; both CUDA kernels built from
+In order: the card's name and power limit; the CUDA kernels built from
 ``spartan_tpu_torch/csrc`` with ``-Xptxas -v`` (registers and spills
 printed per entry function); each kernel held bit for bit against its
 plain PyTorch version on the card, at small shapes, at the shapes the
@@ -31,9 +31,17 @@ verified and a tampered copy rejected, each of encode and prove between
 counter resets, the first, middle and last rows of each of their B1
 launches held against the plain version, with B1 timed on the encode's
 own tables; then the prove's batched B2 launches, as counted by shape,
-replayed and timed.  It ends with a JSON line per kernel (B2's batched
-mode its own line), the card's line from nvidia-smi and ``{"ok": true,
-"device": {...}}``.  Any failure raises and exits non-zero; with no card
+replayed and timed.  Then the device prover (``SPARTAN_TPU_DEVICE_PROVER``):
+K3, one STROBE step (``csrc/keccak.cu``), against its plain version on
+1,024 random states; K4, the ristretto encode (``csrc/ristretto.cu``),
+on 4,097 points that cover every branch of ENCODE; B2 reading its
+challenge through a pointer against the by-value form at (4, 2^20),
+(2, 2^21) and (18, 2^19), in both modes that take a challenge; and the
+same 2^20 NIZK and SNARK proved again under the gate, whose bytes must
+equal the host path's and verify, each device ZK phase and product
+proof fetching once.  It ends with a JSON line per kernel (B2's batched
+mode its own line, K3 and K4 theirs), the card's line from nvidia-smi
+and ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; with no card
 it exits 2 before printing any result.  All inputs are made from fixed
 seeds.
 """
@@ -121,7 +129,7 @@ def build_kernels() -> None:
         path, report = _build.compile_kernel(name, verbose=True)
         return path, report, time.perf_counter() - t0
 
-    names = ["row_msm", "fold_evals"]
+    names = ["row_msm", "fold_evals", "keccak", "ristretto"]
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = {n: pool.submit(timed, n) for n in names}
         for name in names:
@@ -694,6 +702,9 @@ def golden_snark(dev) -> None:
         "proof verifies")
 
 
+# the NIZK's phase spans (utils/timer.py)
+NIZK_SPANS = ["polycommit", "prove_sc_phase_one", "prove_sc_phase_two",
+              "polyeval"]
 # the Spark spans of a SNARK prove (utils/timer.py totals), in order
 SNARK_SPANS = ["polycommit", "prove_sc_phase_one", "prove_sc_phase_two",
                "polyeval", "eval_sparse_polys", "R1CSEvalProof::prove",
@@ -750,6 +761,7 @@ def snark_main_path(dev, inst, vars_a, inputs_a) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     mem1 = torch.cuda.memory_stats()
+    prove_start_bytes = torch.cuda.memory_allocated()
     timer.totals.clear()
     f0, s0 = rt.snapshot()
     reset_counts()
@@ -821,6 +833,7 @@ def snark_main_path(dev, inst, vars_a, inputs_a) -> dict:
                "prove_fetches": f1 - f0, "prove_fetch_stall_s": s1 - s0,
                "peak_device_bytes": {"encode": encode_peak,
                                      "prove": prove_peak},
+               "device_bytes_at_prove_start": prove_start_bytes,
                "device_mallocs_prove": new_segments(mem1),
                "device_mallocs_encode_and_prove": new_segments(mem0),
                "commitment_bytes": len(comm_blob), "proof_bytes": len(blob),
@@ -830,7 +843,8 @@ def snark_main_path(dev, inst, vars_a, inputs_a) -> dict:
                "row_msm_rows_checked_at": checked,
                "row_msm_on_spark_tables": spark_msm}
     log("snark " + json.dumps(summary))
-    return summary, prod_shapes
+    return summary, prod_shapes, dict(gens=gens, comm=comm, decomm=decomm,
+                                      blob=blob)
 
 
 def make_instance(dev, log_n: int):
@@ -848,31 +862,52 @@ def make_instance(dev, log_n: int):
     return inst, vars_a, inputs_a, time.perf_counter() - t0
 
 
-def reset_counts() -> None:
+def _plains():
+    from spartan_tpu_torch.curve import ristretto as dri
     from spartan_tpu_torch.curve import row_msm as rm
     from spartan_tpu_torch.ff import round_kernel as rk
+    from spartan_tpu_torch.transcript import device as dt
+
+    return (rm.row_msm_plain, rk.fold_evals_plain, dt.strobe_step_plain,
+            dri.compress_plain)
+
+
+def reset_counts() -> None:
+    from spartan_tpu_torch.curve import ristretto as dri
+    from spartan_tpu_torch.curve import row_msm as rm
+    from spartan_tpu_torch.ff import round_kernel as rk
+    from spartan_tpu_torch.transcript import device as dt
 
     rm.row_msm.launches = 0
     rk.fold_evals.launches.clear()
-    rm.row_msm_plain.cuda_calls = rk.fold_evals_plain.cuda_calls = 0
+    rk.fold_evals.launches_device_r = 0
+    dt.strobe_step.launches = dri.compress.launches = 0
+    for f in _plains():
+        f.cuda_calls = 0
 
 
 def read_counts() -> dict:
     """The launch counts since reset_counts(); raises on a plain-version
-    call on the card."""
+    call on the card (every plain version's ``cuda_calls`` is printed)."""
+    from spartan_tpu_torch.curve import ristretto as dri
     from spartan_tpu_torch.curve import row_msm as rm
     from spartan_tpu_torch.ff import round_kernel as rk
+    from spartan_tpu_torch.transcript import device as dt
 
-    plain = rm.row_msm_plain.cuda_calls + rk.fold_evals_plain.cuda_calls
+    calls = {f.__name__: f.cuda_calls for f in _plains()}
+    plain = sum(calls.values())
     if plain:
-        raise AssertionError(f"{plain} plain-version calls on the card")
+        raise AssertionError(f"plain-version calls on the card: {calls}")
     by_comb = dict.fromkeys(rk._WHICH.values(), 0)
     for (comb, *_), count in rk.fold_evals.launches.items():
         by_comb[comb] += count
     return {"row_msm": rm.row_msm.launches,
             "fold_evals": sum(by_comb.values()),
             "fold_evals_by_comb": by_comb,
-            "plain_calls_on_card": plain}
+            "fold_evals_device_r": rk.fold_evals.launches_device_r,
+            "strobe_step": dt.strobe_step.launches,
+            "ristretto_compress": dri.compress.launches,
+            "plain_calls_on_card": plain, "plain_cuda_calls": calls}
 
 
 def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
@@ -899,6 +934,7 @@ def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
     nizk = NIZK.prove(inst, vars_a, inputs_a, gens,
@@ -908,9 +944,7 @@ def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     mallocs = new_segments(mem0)
-    phases = {k: timer.records[k] for k in (
-        "polycommit", "prove_sc_phase_one", "prove_sc_phase_two",
-        "polyeval")}
+    phases = {k: timer.records[k] for k in NIZK_SPANS}
     if min(launches["row_msm"], launches["fold_evals"]) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
 
@@ -930,12 +964,319 @@ def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
         raise AssertionError("a tampered proof verified")
     summary = {"log_n": log_n, "num_inputs": n_inputs, "setup_s": setup_s,
                "prove_s": prove_s, "verify_s": verify_s, "phases_s": phases,
-               "peak_device_bytes": peak, "device_mallocs": mallocs,
+               "peak_device_bytes": peak,
+               "device_bytes_at_start": start_bytes, "device_mallocs": mallocs,
                "proof_bytes": len(blob),
                "launches": launches}
     summary["polycommit_profile"] = commit_profile(dev, gens)
     log("nizk " + json.dumps(summary))
-    return summary
+    return summary, dict(gens=gens, blob=blob)
+
+
+# The device prover's own kernels (protocols/device_prover.py): K3, one
+# STROBE step of the device transcript (csrc/keccak.cu), and K4, the
+# ristretto encode (csrc/ristretto.cu).  K3's bound is the latency of the
+# permutation's dependent chain: 7 dependent 32-bit ALU steps a round on
+# sm_90 (theta's five-input column parity as 2 three-input LOP3s, its
+# 1-bit rotate as two independent funnel shifts, 1, and the D xor fused
+# with the lane xor in one LOP3, 1; rho's rotate 1; chi's a ^ (~b & c)
+# one LOP3, 1; iota 1) at ~4 cycles each, 24 rounds, at the boost
+# clock; the absorb's xors before the permutation are left out, so it
+# stays a lower bound.  K4's is its field products (the inverse
+# square root's 251 squarings and 11 products, 22 around them, 72 wide
+# multiply-adds each) over the card's IMAD rate.
+K3_STATES = 1024
+K4_POINTS = 4096
+KECCAK_CHAIN_PER_ROUND = 7
+ALU_LATENCY_CYCLES = 4
+CLOCK_HZ = 1.98e9
+ENCODE_FP_MULS = 284
+# B2 with a device challenge: the NIZK's phase tables and the product
+# layers' largest batch
+DEVICE_R_CASES = [(4, (1 << 20,)), (2, (1 << 21,)), (3, (18, 1 << 19))]
+
+
+def strobe_step_bound() -> dict:
+    t_ops = 24 * KECCAK_CHAIN_PER_ROUND * ALU_LATENCY_CYCLES / CLOCK_HZ * 1e3
+    t_bytes = 3 * 200 / HBM_BYTES_S * 1e3  # state in and out, the mask
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def compress_bound(k: int) -> dict:
+    t_bytes = k * (128 + 32) / HBM_BYTES_S * 1e3
+    t_ops = (k * ENCODE_FP_MULS * FP_MUL_WIDE * IMAD_PER_WIDE / IMAD_S
+             * 1e3)
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def check_strobe_step(dev, gen) -> dict:
+    """K3 against its plain version on K3_STATES random states (a mask
+    and three device segments, then the permutation), and without a mask
+    or a permutation; timed in a CUDA graph."""
+    import torch
+
+    from spartan_tpu_torch.transcript import device as dt
+
+    def rbytes(n):
+        return torch.randint(0, 256, (n,), generator=gen,
+                             dtype=torch.int64).to(torch.uint8)
+
+    states = torch.stack([rbytes(200) for _ in range(K3_STATES)]).to(dev)
+    mask = bytes(rbytes(200).tolist())
+    segs = [(rbytes(n).to(dev), off) for n, off in ((32, 8), (64, 60),
+                                                     (7, 193))]
+    err = 0
+    for m, permute in ((mask, True), (None, True), (mask, False)):
+        want = states.clone()
+        dt.strobe_step_plain(want, m, segs, permute)
+        got = states.clone()
+        for i in range(K3_STATES):
+            dt.strobe_step(got[i], m, segs, permute)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got.int(), want.int()))
+    one = states[0].clone()
+    t0 = time.perf_counter()
+    dt.strobe_step_plain(one, mask, segs, True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ms = graph_ms(lambda: [dt.strobe_step(one, mask, segs, True)
+                           for _ in range(100)], 5) / 100
+    eager = cuda_ms(lambda: dt.strobe_step(one, mask, segs, True), 100)
+    bound = strobe_step_bound()
+    log(f"strobe_step (K3) on {K3_STATES} states x 3 forms: max_abs_err "
+        f"{err}; {ms * 1e3:.2f} us in a CUDA graph ({eager * 1e3:.2f} us "
+        f"launched one by one), bound {bound['bound_ms'] * 1e3:.3f} us "
+        f"({bound['bound_by']}), plain {plain_ms:.1f} ms")
+    if err:
+        raise AssertionError("strobe_step differs from its plain version")
+    return dict(shape=[200], max_abs_err=err, ms=ms, eager_ms=eager,
+                plain_ms=plain_ms, **bound)
+
+
+def encode_branch(pt) -> tuple[bool, bool]:
+    """(rotate, y negated) of ENCODE at this representative (RFC 9496
+    section 4.3.2), on the host."""
+    from spartan_tpu_torch.core import field as F
+    from spartan_tpu_torch.core.field import P25519 as P
+
+    X, Y, Z, T = pt.X, pt.Y, pt.Z, pt.T
+    u1 = (Z + Y) * (Z - Y) % P
+    _, inv = F.sqrt_ratio_m1(1, u1 * (X * Y) ** 2 % P)
+    z_inv = inv * u1 % P * (inv * X * Y % P) % P * T % P
+    rotate = F.is_negative(T * z_inv % P)
+    x = Y * F.SQRT_M1 % P if rotate else X
+    return rotate, F.is_negative(x * z_inv % P)
+
+
+def check_compress(dev, gen) -> dict:
+    """K4 against its plain version on K4_POINTS random points (s * B,
+    made by B1), the identity, and points of every branch; timed at the
+    ZK rounds' two points and at K4_POINTS."""
+    import torch
+
+    from spartan_tpu_torch.commitments import build_table
+    from spartan_tpu_torch.core import edwards as hed
+    from spartan_tpu_torch.curve import edwards as ed
+    from spartan_tpu_torch.curve import ristretto as dri
+    from spartan_tpu_torch.curve import row_msm as rm
+
+    s = rand_elems(gen, K4_POINTS, dev).reshape(K4_POINTS, 1, 8)
+    pts = torch.cat([rm.row_msm(s, build_table([hed.BASEPOINT], dev)),
+                     ed.stack(ed.identity((1,), dev))])
+    branches = {encode_branch(p) for p in ed.to_host(ed.unstack(pts[:64]))}
+    if len(branches) < 4:
+        raise AssertionError(f"the check's points miss a branch of ENCODE: "
+                             f"{branches}")
+    p = ed.unstack(pts)
+    t0 = time.perf_counter()
+    want = dri.compress_plain(p)
+    torch.cuda.synchronize()
+    plain_all_ms = (time.perf_counter() - t0) * 1e3
+    got = dri.compress(p)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    p2 = ed.unstack(pts[:2])
+    t0 = time.perf_counter()
+    dri.compress_plain(p2)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ms = graph_ms(lambda: [dri.compress(p2) for _ in range(20)], 5) / 20
+    ms_all = graph_ms(lambda: dri.compress(p), 5)
+    bound = compress_bound(2)
+    bound_all = compress_bound(K4_POINTS + 1)
+    log(f"ristretto_compress (K4) on {K4_POINTS + 1} points (branches "
+        f"{sorted(branches)}): max_abs_err {err}; 2 points {ms:.4f} ms in "
+        f"a CUDA graph, bound {bound['bound_ms']:.6f} ms, plain "
+        f"{plain_ms:.1f} ms; {K4_POINTS + 1} points {ms_all:.4f} ms, bound "
+        f"{bound_all['bound_ms']:.4f} ms ({bound_all['bound_by']}), plain "
+        f"{plain_all_ms:.1f} ms")
+    if err:
+        raise AssertionError("compress differs from its plain version")
+    return dict(shape=[2], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **bound, ms_4097=ms_all, plain_ms_4097=plain_all_ms,
+                bound_ms_4097=bound_all["bound_ms"])
+
+
+def check_fold_evals_device_r(dev, gen) -> dict:
+    """B2 with its challenge read through a pointer against the by-value
+    form at DEVICE_R_CASES, both r-taking modes; the two forms timed
+    side by side at (4, 2^20) fold+evals in a CUDA graph."""
+    import torch
+
+    from spartan_tpu_torch.core.field import Q
+    from spartan_tpu_torch.ff import fq
+    from spartan_tpu_torch.ff import round_kernel as rk
+
+    r = (11 ** 101) % Q
+    r_dev = fq.mont_limbs(r, dev)
+    result = {}
+    for ntab, shape in DEVICE_R_CASES:
+        n = 1
+        for d in shape:
+            n *= d
+        tabs = [rand_elems(gen, n, dev).reshape(*shape, 8)
+                for _ in range(ntab)]
+        for mode in ("fold_evals", "fold"):
+            got_t, got_e = rk.fold_evals(tabs, r_dev, mode)
+            want_t, want_e = rk.fold_evals(tabs, r, mode)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(a, b) for a, b in zip(got_t, want_t))
+            if mode != "fold":
+                err = max(err, max_abs_err(got_e, want_e))
+            log(f"fold_evals device r, ntab {ntab} {shape} {mode}: "
+                f"max_abs_err {err} against the by-value form")
+            if err:
+                raise AssertionError(f"fold_evals with a device r differs "
+                                     f"at {ntab} {shape} {mode}")
+            del got_t, want_t
+        if (ntab, shape) == DEVICE_R_CASES[0]:
+            for name, rr in (("by_value", r), ("device", r_dev),
+                             ("device_again", r_dev),
+                             ("by_value_again", r)):
+                result[f"{name}_ms"] = graph_ms(
+                    lambda: [rk.fold_evals(tabs, rr, "fold_evals")
+                             for _ in range(10)], 5) / 10
+            log(f"fold_evals (4, 2^20) fold+evals, r by value / device / "
+                f"device / by value: " + ", ".join(
+                    f"{v:.4f}" for v in result.values()) + " ms")
+        del tabs
+    return result
+
+
+class FetchesPerCall:
+    """Counts the fetches (utils/rt.py) of each call of the device
+    prover's two entry points while active."""
+
+    def __enter__(self):
+        from spartan_tpu_torch.protocols import device_prover as dp
+        from spartan_tpu_torch.utils import rt
+
+        self.calls = []
+        self._orig = {}
+        for name in ("zk_sumcheck_phase_device",
+                     "prove_product_layers_device"):
+            fn = getattr(dp, name)
+            self._orig[name] = fn
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                f0 = rt.fetches
+                out = _fn(*a, **k)
+                self.calls.append((_name, rt.fetches - f0))
+                return out
+
+            setattr(dp, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from spartan_tpu_torch.protocols import device_prover as dp
+
+        for name, fn in self._orig.items():
+            setattr(dp, name, fn)
+
+    def check(self, what: str) -> dict:
+        per = collections.Counter(name for name, _ in self.calls)
+        bad = [c for c in self.calls if c[1] != 1]
+        if not self.calls or bad:
+            raise AssertionError(f"{what}: device prover calls and their "
+                                 f"fetches {self.calls}")
+        return dict(per)
+
+
+GATED_KERNELS = ("row_msm", "fold_evals", "fold_evals_device_r",
+                 "strobe_step", "ristretto_compress")
+
+
+def device_prover_paths(dev, inst, vars_a, inputs_a, nizk_ctx,
+                        snark_ctx) -> dict:
+    """The 2^20 NIZK and SNARK proved again under
+    SPARTAN_TPU_DEVICE_PROVER=1, with the host path's transcript labels
+    and tape seed: the bytes must equal the host path's (same process)
+    and verify.  Counters reset just before each prove and read just
+    after; each device ZK phase and product proof must fetch once."""
+    import torch
+
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import NIZK, SNARK
+    from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.utils import rt, timer
+
+    def run(what, prove, spans):
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        timer.totals.clear()
+        f0, s0 = rt.snapshot()
+        reset_counts()
+        with FetchesPerCall() as per_call:
+            t0 = time.perf_counter()
+            proof = prove()
+            torch.cuda.synchronize()
+            prove_s = time.perf_counter() - t0
+        launches = read_counts()
+        f1, s1 = rt.snapshot()
+        missing = [k for k in GATED_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{what}: {missing} never launched: "
+                                 f"{launches}")
+        return proof, {
+            "prove_s": prove_s, "spans_s": {k: timer.totals.get(k)
+                                            for k in spans},
+            "fetches": f1 - f0, "fetch_stall_s": s1 - s0,
+            "device_prover_calls": per_call.check(what),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "device_bytes_at_start": start_bytes,
+            "device_mallocs": new_segments(mem0), "launches": launches}
+
+    os.environ["SPARTAN_TPU_DEVICE_PROVER"] = "1"
+    try:
+        nizk, nizk_sum = run("nizk", lambda: NIZK.prove(
+            inst, vars_a, inputs_a, nizk_ctx["gens"],
+            Transcript(b"chip_smoke"), _tape_seed=7), NIZK_SPANS)
+        snark, snark_sum = run("snark", lambda: SNARK.prove(
+            inst, snark_ctx["comm"], snark_ctx["decomm"], vars_a, inputs_a,
+            snark_ctx["gens"], Transcript(b"chip_smoke_snark"),
+            _tape_seed=7), SNARK_SPANS)
+    finally:
+        del os.environ["SPARTAN_TPU_DEVICE_PROVER"]
+    if ser.nizk_to_bytes(nizk) != nizk_ctx["blob"]:
+        raise AssertionError("the device prover's NIZK bytes differ from "
+                             "the host path's")
+    if ser.snark_to_bytes(snark) != snark_ctx["blob"]:
+        raise AssertionError("the device prover's SNARK bytes differ from "
+                             "the host path's")
+    t0 = time.perf_counter()
+    nizk.verify(inst, inputs_a, Transcript(b"chip_smoke"), nizk_ctx["gens"])
+    nizk_sum["verify_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snark.verify(snark_ctx["comm"], inputs_a,
+                 Transcript(b"chip_smoke_snark"), snark_ctx["gens"])
+    snark_sum["verify_s"] = time.perf_counter() - t0
+    out = {"nizk": nizk_sum, "snark": snark_sum,
+           "bytes_equal_host_path": True}
+    log("device_prover " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -962,20 +1303,30 @@ def main() -> int:
     fold = check_fold_evals(dev, gen, ROUND_CASES)
     fold.update(check_round_chains(dev, gen))
     prod = check_cubic_prod(dev, gen)
+    k3 = check_strobe_step(dev, gen)
+    k4 = check_compress(dev, gen)
+    fold["device_r"] = check_fold_evals_device_r(dev, gen)
     golden(dev)
     golden_snark(dev)
     inst, vars_a, inputs_a, setup_s = make_instance(dev, LOG_N)
-    summary = nizk_main_path(dev, inst, vars_a, inputs_a, setup_s)
-    snark, prod_shapes = snark_main_path(dev, inst, vars_a, inputs_a)
+    summary, nizk_ctx = nizk_main_path(dev, inst, vars_a, inputs_a, setup_s)
+    snark, prod_shapes, snark_ctx = snark_main_path(dev, inst, vars_a,
+                                                    inputs_a)
     prod_chain = check_product_layer_chain(dev, prod_shapes)
     if (prod_chain["launches_per_prove"]
             != snark["launches"]["prove"]["fold_evals_by_comb"]["cubic_prod"]):
         raise AssertionError("the replay's launches differ from the prove's")
+    gated = device_prover_paths(dev, inst, vars_a, inputs_a, nizk_ctx,
+                                snark_ctx)
     by_path = {
         name: {"nizk_prove": summary["launches"][name],
                "snark_encode": snark["launches"]["encode"][name],
-               "snark_prove": snark["launches"]["prove"][name]}
-        for name in ("row_msm", "fold_evals")}
+               "snark_prove": snark["launches"]["prove"][name],
+               "nizk_prove_device_prover": gated["nizk"]["launches"][name],
+               "snark_prove_device_prover":
+                   gated["snark"]["launches"][name]}
+        for name in ("row_msm", "fold_evals", "fold_evals_device_r",
+                     "strobe_step", "ristretto_compress")}
     timed = PROD_TIMED + ("fold_evals",)
     kernels = [
         dict(name="row_msm", route="cuda",
@@ -988,7 +1339,9 @@ def main() -> int:
              source="spartan_tpu_torch/csrc/fold_evals.cu",
              replaces="spartan_tpu/ff/pallas_kernels.py:211",
              launches=summary["launches"]["fold_evals"], library_ms=None,
-             launches_by_path=by_path["fold_evals"], **fold),
+             launches_by_path=by_path["fold_evals"],
+             device_r_launches_by_path=by_path["fold_evals_device_r"],
+             **fold),
         dict(name="fold_evals[cubic_prod, batched]", route="cuda",
              source="spartan_tpu_torch/csrc/fold_evals.cu",
              replaces="spartan_tpu/ff/pallas_kernels.py:211",
@@ -996,6 +1349,18 @@ def main() -> int:
                  "cubic_prod"],
              library_ms=None, shape=list(timed), modes=prod,
              **prod["fold_evals"], **prod_chain),
+        dict(name="strobe_step (keccak-f[1600])", route="cuda",
+             source="spartan_tpu_torch/csrc/keccak.cu",
+             replaces="spartan_tpu/transcript/device.py:89",
+             launches=gated["nizk"]["launches"]["strobe_step"],
+             launches_by_path=by_path["strobe_step"], library_ms=None,
+             **k3),
+        dict(name="ristretto_compress", route="cuda",
+             source="spartan_tpu_torch/csrc/ristretto.cu",
+             replaces="spartan_tpu/curve/ristretto.py:26",
+             launches=gated["nizk"]["launches"]["ristretto_compress"],
+             launches_by_path=by_path["ristretto_compress"],
+             library_ms=None, **k4),
     ]
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

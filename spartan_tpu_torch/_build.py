@@ -88,6 +88,14 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
+def check_aligned(what: str, *tensors) -> None:
+    """The kernels load 16 bytes at a time: raise on a tensor whose data
+    does not start on a 16-byte boundary (a view at an odd offset)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensor data not 16-byte aligned")
+
+
 def stream_handle(device) -> int:
     import torch
 

@@ -47,7 +47,10 @@
 // CIOS of fq.cuh, run side by side where they are independent (a
 // table's two folds; the comb at X = 0, 2, 3), so that each warp has
 // more than one chain to issue from.  The challenge r arrives in
-// Montgomery form.
+// Montgomery form, by value from the host path or, for the device prover
+// (protocols/device_prover.py), as a pointer to the 8 words the device
+// transcript squeezed (a template flag: the by-value kernels are as
+// they were).
 //
 // It replaces a first design of one thread per pair at 162-188
 // registers (8 warps a SM), a shared-memory tree per block and a second
@@ -317,35 +320,53 @@ static __device__ __forceinline__ void with_evals(
   }
 }
 
-// n: size of each instance's input tables; batch: instances, a divisor
-// of gridDim.x.  FOLD: pairs j < n/2 (no evals).  EVALS: pairs j < n/2.
-// FOLD_EVALS: pairs j < n/4.  partial: (gridDim.x, 3, 9) block sums;
-// ticket: a counter, zero at the launch and this launch's own; evals:
-// (3, batch, 8) canonical Montgomery residues.
 template <int NTAB, int MODE>
-__global__ void __launch_bounds__(BLOCK, BLOCKS_PER_SM)
-    fold_evals_kernel(tables_t tabs, long n, int batch, fq_arg_t r,
-                      uint32_t* __restrict__ partial,
-                      unsigned int* __restrict__ ticket,
-                      uint32_t* __restrict__ evals) {
+static __device__ __forceinline__ void round_body(
+    const tables_t& tabs, long n, int batch, const fq_arg_t& r,
+    uint32_t* partial, unsigned int* ticket, uint32_t* evals) {
   if constexpr (MODE == MODE_FOLD)
     fold_only<NTAB>(tabs, n, batch, r);
   else
     with_evals<NTAB, MODE>(tabs, n, batch, r, partial, ticket, evals);
 }
 
+// n: size of each instance's input tables; batch: instances, a divisor
+// of gridDim.x.  FOLD: pairs j < n/2 (no evals).  EVALS: pairs j < n/2.
+// FOLD_EVALS: pairs j < n/4.  r: the challenge by value, or, when RDEV,
+// read from rdev (8 words on the device: a challenge the device
+// transcript squeezed, which the host never sees).  partial: (gridDim.x,
+// 3, 9) block sums; ticket: a counter, zero at the launch and this
+// launch's own; evals: (3, batch, 8) canonical Montgomery residues.
+template <int NTAB, int MODE, bool RDEV>
+__global__ void __launch_bounds__(BLOCK, BLOCKS_PER_SM)
+    fold_evals_kernel(tables_t tabs, long n, int batch, fq_arg_t r,
+                      const uint32_t* __restrict__ rdev,
+                      uint32_t* __restrict__ partial,
+                      unsigned int* __restrict__ ticket,
+                      uint32_t* __restrict__ evals) {
+  if constexpr (RDEV) {
+    fq_arg_t rv;
+#pragma unroll
+    for (int w = 0; w < 8; w++) rv.v[w] = __ldg(rdev + w);
+    round_body<NTAB, MODE>(tabs, n, batch, rv, partial, ticket, evals);
+  } else {
+    round_body<NTAB, MODE>(tabs, n, batch, r, partial, ticket, evals);
+  }
+}
+
 // in/out: ntab table pointers each (unused slots are null), each
 // (batch, n) elements in, (batch, n/2) out.  nblocks: a multiple of
-// batch.  partial: scratch of nblocks * 27 words; ticket: one zeroed word
-// that no other launch in flight shares; evals: (3, batch, 8) output.
-// FOLD mode writes neither partial nor evals.
+// batch.  rdev: null for the challenge r by value, else its 8 words on
+// the device.  partial: scratch of nblocks * 27 words; ticket: one zeroed
+// word that no other launch in flight shares; evals: (3, batch, 8)
+// output.  FOLD mode writes neither partial nor evals.
 extern "C" int fold_evals_launch(const void* in0, const void* in1,
                                  const void* in2, const void* in3,
                                  void* out0, void* out1, void* out2,
                                  void* out3, int ntab, long n, int batch,
-                                 int mode, fq_arg_t r, int nblocks,
-                                 void* partial, void* ticket, void* evals,
-                                 void* stream) {
+                                 int mode, fq_arg_t r, const void* rdev,
+                                 int nblocks, void* partial, void* ticket,
+                                 void* evals, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   tables_t tabs;
   tabs.in[0] = (const uint32_t*)in0;
@@ -356,25 +377,30 @@ extern "C" int fold_evals_launch(const void* in0, const void* in1,
   tabs.out[1] = (uint32_t*)out1;
   tabs.out[2] = (uint32_t*)out2;
   tabs.out[3] = (uint32_t*)out3;
+  const uint32_t* rd = (const uint32_t*)rdev;
   uint32_t* part = (uint32_t*)partial;
   unsigned int* tk = (unsigned int*)ticket;
   uint32_t* ev = (uint32_t*)evals;
-#define LAUNCH(NT, MD)                                                   \
-  fold_evals_kernel<NT, MD><<<nblocks, BLOCK, 0, s>>>(tabs, n, batch, r, \
-                                                       part, tk, ev)
+#define LAUNCH(NT, MD, RD)                                                \
+  fold_evals_kernel<NT, MD, RD><<<nblocks, BLOCK, 0, s>>>(tabs, n, batch, \
+                                                          r, rd, part, tk, ev)
+#define LAUNCH_R(NT, MD)       \
+  if (rd) LAUNCH(NT, MD, true); \
+  else LAUNCH(NT, MD, false)
   if (ntab == 4) {
-    if (mode == MODE_EVALS) LAUNCH(4, MODE_EVALS);
-    else if (mode == MODE_FOLD_EVALS) LAUNCH(4, MODE_FOLD_EVALS);
-    else LAUNCH(4, MODE_FOLD);
+    if (mode == MODE_EVALS) LAUNCH(4, MODE_EVALS, false);
+    else if (mode == MODE_FOLD_EVALS) { LAUNCH_R(4, MODE_FOLD_EVALS); }
+    else { LAUNCH_R(4, MODE_FOLD); }
   } else if (ntab == 3) {
-    if (mode == MODE_EVALS) LAUNCH(3, MODE_EVALS);
-    else if (mode == MODE_FOLD_EVALS) LAUNCH(3, MODE_FOLD_EVALS);
-    else LAUNCH(3, MODE_FOLD);
+    if (mode == MODE_EVALS) LAUNCH(3, MODE_EVALS, false);
+    else if (mode == MODE_FOLD_EVALS) { LAUNCH_R(3, MODE_FOLD_EVALS); }
+    else { LAUNCH_R(3, MODE_FOLD); }
   } else {
-    if (mode == MODE_EVALS) LAUNCH(2, MODE_EVALS);
-    else if (mode == MODE_FOLD_EVALS) LAUNCH(2, MODE_FOLD_EVALS);
-    else LAUNCH(2, MODE_FOLD);
+    if (mode == MODE_EVALS) LAUNCH(2, MODE_EVALS, false);
+    else if (mode == MODE_FOLD_EVALS) { LAUNCH_R(2, MODE_FOLD_EVALS); }
+    else { LAUNCH_R(2, MODE_FOLD); }
   }
+#undef LAUNCH_R
 #undef LAUNCH
   return (int)cudaGetLastError();
 }

@@ -118,6 +118,7 @@ def row_msm(scalars: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     lib = _build.load("row_msm", _declare)
     scalars = scalars.contiguous()
     tab = tab.contiguous()
+    _build.check_aligned("row_msm", scalars, tab)
     dev = scalars.device
     S = segments(L, R)
     part = torch.empty((L, S, NWINDOWS, 4, limb.NWORDS), dtype=torch.int32,

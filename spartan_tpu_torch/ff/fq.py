@@ -126,6 +126,14 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _elementwise(sub16, a, b)
 
 
+def neg(a: torch.Tensor) -> torch.Tensor:
+    return sub(torch.zeros_like(a), a)
+
+
+def square(a: torch.Tensor) -> torch.Tensor:
+    return mul(a, a)
+
+
 def to_mont(a: torch.Tensor) -> torch.Tensor:
     r2 = limb.const16(R2_INT, a.device)
     return _elementwise(lambda x: mul16(x, r2), a)

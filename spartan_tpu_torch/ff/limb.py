@@ -119,7 +119,7 @@ def mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         # rows of width 2n+1 re-read as rows of width 2n put p[i][j] at
         # column i + j; the pad columns fill the rest with zeros
         p = a.unsqueeze(-1) * b.unsqueeze(-2)
-        p = F.pad(p, (0, n + 1)).flatten(-2)[..., : 2 * n * n]
+        p = torch.constant_pad_nd(p, (0, n + 1)).flatten(-2)[..., : 2 * n * n]
         return p.unflatten(-1, (n, 2 * n)).sum(-2)
     acc = torch.zeros((*a.shape[:-1], 2 * n), dtype=torch.int64,
                       device=a.device)

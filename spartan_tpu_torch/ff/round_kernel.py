@@ -51,7 +51,7 @@ def _declare(lib) -> None:
     p = ctypes.c_void_p
     lib.fold_evals_launch.argtypes = (
         [p] * 8 + [ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int,
-                   _FqArg, ctypes.c_int, p, p, p, p])
+                   _FqArg, p, ctypes.c_int, p, p, p, p])
     lib.fold_evals_launch.restype = ctypes.c_int
 
 
@@ -66,7 +66,7 @@ def _grid(batch: int, n: int, mode: str, device) -> int:
     return batch * per
 
 
-def fold_evals_plain(tables, r: int | None, mode: str):
+def fold_evals_plain(tables, r, mode: str):
     """The plain PyTorch version of the kernel (same outputs).  Its calls
     on CUDA tensors are counted in ``cuda_calls``: the main path makes
     none."""
@@ -75,7 +75,8 @@ def fold_evals_plain(tables, r: int | None, mode: str):
     T = [limb.unpack(t) for t in tables]
     out = list(tables)
     if mode != "evals":
-        rm = limb.unpack(fq.mont_limbs(r, tables[0].device))
+        rm = limb.unpack(r if isinstance(r, torch.Tensor)
+                         else fq.mont_limbs(r, tables[0].device))
         m = T[0].shape[-2] // 2
         T = [fq.add16(t[..., :m, :],
                       fq.mul16(rm, fq.sub16(t[..., m:, :], t[..., :m, :])))
@@ -98,6 +99,11 @@ def _check(tables, r, mode: str) -> tuple[int, int]:
     if (r is None) != (mode == "evals"):
         raise ValueError(f"fold_evals: mode {mode!r} takes "
                          f"{'no' if mode == 'evals' else 'a'} challenge")
+    if isinstance(r, torch.Tensor) and (
+            r.shape != (limb.NWORDS,) or r.dtype != torch.int32
+            or r.device != tables[0].device):
+        raise ValueError("fold_evals: a device challenge is an (8,) int32 "
+                         "Montgomery tensor on the tables' device")
     if len(tables) not in _WHICH:
         raise ValueError(f"fold_evals: 2, 3 or 4 tables, got {len(tables)}")
     batched = len(tables) == 3
@@ -120,10 +126,14 @@ def _check(tables, r, mode: str) -> tuple[int, int]:
     return batch, n
 
 
-def fold_evals(tables, r: int | None, mode: str):
-    """Kernel B2 on the card, its plain version on the CPU.  Launches are
-    counted in ``fold_evals.launches``, a Counter keyed by (comb, batch,
-    n, mode)."""
+def fold_evals(tables, r, mode: str):
+    """Kernel B2 on the card, its plain version on the CPU.  ``r`` is the
+    challenge: a Python int (passed by value), or an (8,) int32
+    Montgomery tensor on the tables' device that the kernel reads
+    through a pointer (the device prover's squeezed challenges; no
+    fetch).  Launches are counted in ``fold_evals.launches``, a Counter
+    keyed by (comb, batch, n, mode); those with a device ``r`` also in
+    ``fold_evals.launches_device_r``."""
     batch, n = _check(tables, r, mode)
     dev = tables[0].device
     if dev.type == "cpu":
@@ -132,6 +142,7 @@ def fold_evals(tables, r: int | None, mode: str):
         raise ValueError(f"fold_evals: unsupported device {dev}")
     lib = _build.load("fold_evals", _declare)
     ins = [t.contiguous() for t in tables]
+    _build.check_aligned("fold_evals", *ins)
     half = (*tables[0].shape[:-2], n // 2, limb.NWORDS)
     outs = ([torch.empty(half, dtype=torch.int32, device=dev) for _ in ins]
             if mode != "evals" else [])
@@ -147,7 +158,10 @@ def fold_evals(tables, r: int | None, mode: str):
         evals = torch.empty((3, *tables[0].shape[:-2], limb.NWORDS),
                             dtype=torch.int32, device=dev)
     rarg = _FqArg()
-    if r is not None:
+    rdev = None
+    if isinstance(r, torch.Tensor):
+        rdev = r.contiguous()
+    elif r is not None:
         rm = (r % Q) * fq.R % Q
         for k in range(8):
             rarg.v[k] = (rm >> (32 * k)) & 0xFFFFFFFF
@@ -160,11 +174,13 @@ def fold_evals(tables, r: int | None, mode: str):
 
     rc = lib.fold_evals_launch(
         *ptrs(ins), *ptrs(outs), len(ins), n, batch, MODES[mode], rarg,
-        nblocks, ptr(partial), ptr(ticket), ptr(evals),
+        ptr(rdev), nblocks, ptr(partial), ptr(ticket), ptr(evals),
         _build.stream_handle(dev))
     fold_evals.launches[_WHICH[len(ins)], batch, n, mode] += 1
+    fold_evals.launches_device_r += rdev is not None
     _build.check(rc, "fold_evals")
     return (outs if mode != "evals" else ins), evals
 
 
 fold_evals.launches = collections.Counter()
+fold_evals.launches_device_r = 0

@@ -85,6 +85,12 @@ class ProductCircuitEvalProofBatched:
               dotp: DotProductCircuitBatch | None,
               transcript: Transcript):
         """Returns (proof, the last layer's challenges)."""
+        from .sumcheck import _use_device_nonzk, _use_device_prover
+
+        if _use_device_prover() or _use_device_nonzk():
+            from .device_prover import prove_product_layers_device
+
+            return prove_product_layers_device(prod, dotp, transcript)
         num_prod = prod.left[0].shape[0]
         dev = prod.left[0].device
         claims_to_verify = prod.evaluate()

@@ -19,6 +19,7 @@ case) run through kernel B2's batched 3-table mode.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -34,6 +35,22 @@ from ..poly.unipoly import UniPoly
 from ..utils.errors import ProofVerifyError
 from . import _combs
 from .sigma import DotProductProof, _decompress
+
+
+def _use_device_prover() -> bool:
+    """The device-resident ZK phases and product layers
+    (``protocols/device_prover.py``): opt-in, SPARTAN_TPU_DEVICE_PROVER=1,
+    as in the JAX package (its ``protocols/sumcheck.py:37-62``)."""
+    # the JAX package also turns this off under a device mesh; the port
+    # has no mesh until its multi-device slice
+    return os.environ.get("SPARTAN_TPU_DEVICE_PROVER", "0") == "1"
+
+
+def _use_device_nonzk() -> bool:
+    """The device-resident product layers only: opt-in,
+    SPARTAN_TPU_DEVICE_NONZK=1 (JAX ``protocols/sumcheck.py:65-88``)."""
+    # no mesh check until the port's multi-device slice, as above
+    return os.environ.get("SPARTAN_TPU_DEVICE_NONZK", "0") == "1"
 
 
 @dataclass
@@ -229,6 +246,12 @@ class ZKSumcheckInstanceProof:
                    poly_A: torch.Tensor, poly_B: torch.Tensor,
                    gens_1: MultiCommitGens, gens_n: MultiCommitGens,
                    transcript: Transcript, tape: RandomTape):
+        if _use_device_prover():
+            from .device_prover import zk_sumcheck_phase_device
+
+            return zk_sumcheck_phase_device(
+                claim, blind_claim, num_rounds, [poly_A, poly_B], "quad",
+                gens_1, gens_n, transcript, tape)
         return ZKSumcheckInstanceProof._prove_rounds(
             claim, blind_claim, num_rounds, [poly_A, poly_B], "quad",
             gens_1, gens_n, transcript, tape)
@@ -239,6 +262,13 @@ class ZKSumcheckInstanceProof:
             poly_A, poly_B, poly_C, poly_D,
             gens_1: MultiCommitGens, gens_n: MultiCommitGens,
             transcript: Transcript, tape: RandomTape):
+        tables = [poly_A, poly_B, poly_C, poly_D]
+        if _use_device_prover():
+            from .device_prover import zk_sumcheck_phase_device
+
+            return zk_sumcheck_phase_device(
+                claim, blind_claim, num_rounds, tables, "cubic", gens_1,
+                gens_n, transcript, tape)
         return ZKSumcheckInstanceProof._prove_rounds(
-            claim, blind_claim, num_rounds, [poly_A, poly_B, poly_C, poly_D],
-            "cubic", gens_1, gens_n, transcript, tape)
+            claim, blind_claim, num_rounds, tables, "cubic", gens_1, gens_n,
+            transcript, tape)

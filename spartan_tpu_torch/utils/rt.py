@@ -1,7 +1,8 @@
 """Host<->device round-trip counters.
 
 Every blocking device->host fetch on the prover path funnels through
-``ff.fq.decode_to_ints`` (round evals, final claims, evaluations), so
+``ff.fq.decode_to_ints`` (round evals, final claims, evaluations) or
+``fetch`` (the device prover's packed results), so
 the fetches per phase and the time the host stalled on them are
 measured there.  ``utils.timer.Timer`` prints the per-phase delta when
 profiling is on
@@ -10,6 +11,8 @@ fetch.
 """
 
 from __future__ import annotations
+
+import time
 
 fetches: int = 0
 stall_s: float = 0.0
@@ -25,3 +28,13 @@ def record(dt: float) -> None:
 
 def snapshot() -> tuple[int, float]:
     return fetches, stall_s
+
+
+def fetch(t):
+    """``t`` copied to the host as a numpy array: one blocking fetch,
+    counted and timed like ``ff.fq.decode_to_ints``'s (the device
+    prover's one fetch a phase)."""
+    t0 = time.perf_counter()
+    out = t.detach().cpu().numpy()
+    record(time.perf_counter() - t0)
+    return out

@@ -1,6 +1,9 @@
 """The CUDA kernels' field and point arithmetic (``csrc/fq.cuh``,
-``csrc/fp25519.cuh``, ``csrc/carry.cuh``) compiled for the host with g++
-and held against python-int oracles.
+``csrc/fp25519.cuh``, ``csrc/carry.cuh``), the keccak-f[1600]
+permutation (``csrc/keccak.cuh``) and the ristretto255 encode
+(``csrc/ristretto.cuh``) compiled for the host with g++ and held
+against python-int oracles, ``core/keccak.py`` and
+``core/ristretto.encode``.
 
 The headers are plain C++ apart from CUDA's qualifiers and vector types,
 which a small shim defines away, so the arithmetic that runs inside the
@@ -23,6 +26,8 @@ import pytest
 import torch  # noqa: F401
 
 from spartan_tpu.core import edwards as jed
+from spartan_tpu.core import field as jfield
+from spartan_tpu.core import keccak as jkeccak
 from spartan_tpu.core import ristretto as jri
 from spartan_tpu.core.field import P25519 as P
 from spartan_tpu.core.field import Q
@@ -40,7 +45,13 @@ static inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z,
                                uint32_t w) { return uint4{x, y, z, w}; }
 #include "fq.cuh"
 #include "fp25519.cuh"
+#include "keccak.cuh"
+#include "ristretto.cuh"
 extern "C" {
+void h_keccak_f1600(uint64_t* a) { keccak_f1600(a); }
+void h_ristretto_encode(uint32_t* s, const uint32_t* p) {
+  ge_t q; ge_load(q, p); ristretto_encode(s, q);
+}
 void h_fq_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) { fq_mul(r, a, b); }
 void h_fq_add(uint32_t* r, const uint32_t* a, const uint32_t* b) { fq_add(r, a, b); }
 void h_fq_sub(uint32_t* r, const uint32_t* a, const uint32_t* b) { fq_sub(r, a, b); }
@@ -240,3 +251,43 @@ def test_fq_accumulate_and_reduce(lib, op):
             out = _buf(0)
             lib.h_fq_reduce_wide(out, _buf(v, 9))
             assert _val(out) == v % Q, v
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_keccak_permutation(lib, seed):
+    rng = random.Random(16 + seed)
+    for _ in range(8):
+        lanes = [rng.randrange(1 << 64) for _ in range(25)]
+        buf = (ctypes.c_uint64 * 25)(*lanes)
+        lib.h_keccak_f1600(buf)
+        assert list(buf) == jkeccak.keccak_f1600(lanes)
+
+
+def _branch(pt):
+    """(rotate, y flipped) of ENCODE at this representative."""
+    X, Y, Z, T = pt.X, pt.Y, pt.Z, pt.T
+    u1 = (Z + Y) * (Z - Y) % P
+    _, inv = jfield.sqrt_ratio_m1(1, u1 * (X * Y) ** 2 % P)
+    z_inv = inv * u1 % P * (inv * X * Y % P) % P * T % P
+    rotate = jfield.is_negative(T * z_inv % P)
+    x = Y * jfield.SQRT_M1 % P if rotate else X
+    return rotate, jfield.is_negative(x * z_inv % P)
+
+
+def test_ristretto_encode(lib):
+    """ENCODE of random points in projective form (Z != 1), of the
+    identity, and of points in each branch (rotate, negative y), also
+    with lazy coordinates (+p, below 2^256)."""
+    rng = random.Random(17)
+    pts, seen = [jed.Point.identity()], set()
+    while len(pts) < 24 or len(seen) < 4:
+        p = jri.from_uniform_bytes(rng.randbytes(64)).add(jed.BASEPOINT)
+        seen.add(_branch(p))
+        pts.append(p)
+    for p in pts:
+        for lazy in (0, P):
+            out = _buf(0)
+            buf = _buf(sum((c + (lazy if c + lazy < R else 0)) << (256 * k)
+                           for k, c in enumerate((p.X, p.Y, p.Z, p.T))), 32)
+            lib.h_ristretto_encode(out, buf)
+            assert _val(out).to_bytes(32, "little") == jri.encode(p)

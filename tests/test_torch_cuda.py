@@ -173,3 +173,109 @@ def test_golden_nizk_on_the_card(dev):
                           "nizk_proof.bin")
     with open(golden, "rb") as f:
         assert ser.nizk_to_bytes(nizk) == f.read()
+
+
+def test_strobe_step_kernel_vs_plain(dev):
+    """K3 on 64 random states with and without a mask, with segments,
+    permuting or not, against the plain version (in place on copies)."""
+    from spartan_tpu_torch.transcript import device as dt
+
+    g = torch.Generator().manual_seed(21)
+    for k in range(64):
+        st = torch.randint(0, 256, (200,), generator=g,
+                           dtype=torch.int64).to(torch.uint8)
+        mask = (bytes(torch.randint(0, 256, (200,), generator=g).tolist())
+                if k % 3 else None)
+        segs = [(torch.randint(0, 256, (n,), generator=g,
+                               dtype=torch.int64).to(torch.uint8), off)
+                for n, off in ((32, 5), (64, 40), (1, 199))]
+        want = st.clone()
+        dt.strobe_step_plain(want, mask, segs, k % 2 == 0)
+        got = st.to(dev)
+        before = dt.strobe_step.launches
+        dt.strobe_step(got, mask, [(s.to(dev), o) for s, o in segs],
+                       k % 2 == 0)
+        torch.cuda.synchronize()
+        assert dt.strobe_step.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+def test_compress_kernel_vs_plain(dev):
+    """K4 against the plain version on random points, the identity and
+    lazy coordinates."""
+    from spartan_tpu_torch.core import edwards as hed
+    from spartan_tpu_torch.curve import edwards as ed
+    from spartan_tpu_torch.curve import ristretto as dri
+
+    pts = [hed.Point.identity()] + [hed.BASEPOINT.mul(7 ** k + 1)
+                                    for k in range(1, 130)]
+    p = ed.from_host(pts, dev)
+    before = dri.compress.launches
+    got = dri.compress(p)
+    torch.cuda.synchronize()
+    assert dri.compress.launches == before + 1
+    assert torch.equal(got, dri.compress_plain(p))
+
+
+@pytest.mark.parametrize("ntab,shape", [(4, (4096,)), (2, (4096,)),
+                                        (3, (6, 64))])
+@pytest.mark.parametrize("mode", ["fold_evals", "fold"])
+def test_fold_evals_kernel_device_r(dev, ntab, shape, mode):
+    """B2 with the challenge read through a pointer equals the by-value
+    form and the plain version."""
+    from spartan_tpu_torch.ff import fq
+
+    n = 1
+    for d in shape:
+        n *= d
+    tabs = [_elems(n, 30 + t, dev).reshape(*shape, 8) for t in range(ntab)]
+    r = (3 ** 99) % Q
+    got = rk.fold_evals(tabs, fq.mont_limbs(r, dev), mode)
+    want = rk.fold_evals(tabs, r, mode)
+    plain = rk.fold_evals_plain(tabs, r, mode)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got[0], want[0], plain[0]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if mode != "fold":
+        assert torch.equal(got[1], want[1]) and torch.equal(got[1], plain[1])
+
+
+@pytest.mark.parametrize("gate", ["SPARTAN_TPU_DEVICE_PROVER",
+                                  "SPARTAN_TPU_DEVICE_NONZK"])
+def test_golden_snark_device_prover_on_the_card(dev, gate, monkeypatch):
+    import os
+
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import SNARK, Instance, SNARKGens
+    from spartan_tpu_torch.core.merlin import Transcript
+
+    monkeypatch.setenv(gate, "1")
+    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
+        16, 16, 2, seed=424242, device=dev)
+    gens = SNARKGens(16, 16, 2, 16)
+    comm, decomm = SNARK.encode(inst, gens)
+    snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,
+                        Transcript(b"golden_snark"), _tape_seed=31337)
+    golden = os.path.join(os.path.dirname(__file__), "golden",
+                          "snark_proof.bin")
+    with open(golden, "rb") as f:
+        assert ser.snark_to_bytes(snark) == f.read()
+    snark.verify(comm, inputs_a, Transcript(b"golden_snark"), gens)
+
+
+def test_golden_nizk_device_prover_on_the_card(dev, monkeypatch):
+    import os
+
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import NIZK, Instance, NIZKGens
+    from spartan_tpu_torch.core.merlin import Transcript
+
+    monkeypatch.setenv("SPARTAN_TPU_DEVICE_PROVER", "1")
+    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
+        16, 16, 2, seed=424242, device=dev)
+    nizk = NIZK.prove(inst, vars_a, inputs_a, NIZKGens(16, 16, 2),
+                      Transcript(b"golden_nizk"), _tape_seed=31337)
+    golden = os.path.join(os.path.dirname(__file__), "golden",
+                          "nizk_proof.bin")
+    with open(golden, "rb") as f:
+        assert ser.nizk_to_bytes(nizk) == f.read()

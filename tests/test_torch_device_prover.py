@@ -1,0 +1,167 @@
+"""The port's device-resident prover (``spartan_tpu_torch/protocols/
+device_prover.py``) on the CPU, through the kernels' plain versions.
+
+* A ZK sum-check phase on the device (quad and cubic, n = 2^4) equals
+  ``ZKSumcheckInstanceProof._prove_rounds``: the same proof, challenges,
+  final claims and last blind, the host transcript and the tape left in
+  the same state.
+* The device product layers, with and without dot-product circuits,
+  equal ``ProductCircuitEvalProofBatched.prove`` on the host.
+* The round-polynomial helpers equal ``poly.unipoly.UniPoly``.
+* The slice as a whole, against the JAX package: with
+  ``SPARTAN_TPU_DEVICE_PROVER=1`` the port reproduces
+  ``tests/golden/nizk_proof.bin`` and ``snark_proof.bin`` (the JAX
+  package's bytes, ``tests/test_golden.py``) byte for byte and both
+  verify; so does the SNARK with ``SPARTAN_TPU_DEVICE_NONZK=1``.  No JAX
+  code runs here.
+"""
+
+import os
+import random
+
+import jax  # noqa: F401
+import pytest
+import torch
+
+from spartan_tpu_torch import serialize as ser
+from spartan_tpu_torch.api import (NIZK, SNARK, Instance, NIZKGens,
+                                   SNARKGens)
+from spartan_tpu_torch.commitments import MultiCommitGens
+from spartan_tpu_torch.core.field import Q
+from spartan_tpu_torch.core.merlin import RandomTape, Transcript
+from spartan_tpu_torch.ff import fq, limb
+from spartan_tpu_torch.poly.unipoly import UniPoly
+from spartan_tpu_torch.protocols import device_prover as dp
+from spartan_tpu_torch.protocols.product_tree import (
+    DotProductCircuitBatch, ProductCircuitBatch,
+    ProductCircuitEvalProofBatched)
+from spartan_tpu_torch.protocols.sumcheck import ZKSumcheckInstanceProof
+from spartan_tpu_torch.transcript.device import DeviceTranscript
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+SHAPE = (16, 16, 2)
+GATES = ("SPARTAN_TPU_DEVICE_PROVER", "SPARTAN_TPU_DEVICE_NONZK")
+
+
+def _golden(name):
+    with open(os.path.join(GOLDEN, name), "rb") as f:
+        return f.read()
+
+
+@pytest.fixture
+def no_gates(monkeypatch):
+    for g in GATES:
+        monkeypatch.delenv(g, raising=False)
+    return monkeypatch
+
+
+@pytest.mark.parametrize("which", ["quad", "cubic"])
+def test_zk_phase_on_device_equals_host(which, no_gates):
+    rng = random.Random(5)
+    ntab, deg = (2, 2) if which == "quad" else (4, 3)
+    n = 16
+    vals = [[rng.randrange(Q) for _ in range(n)] for _ in range(ntab)]
+    if which == "quad":
+        claim = sum(a * b for a, b in zip(*vals)) % Q
+    else:
+        claim = sum(a * (b * c - d) for a, b, c, d in zip(*vals)) % Q
+    tables = [fq.encode_ints(v) for v in vals]
+    gens_1 = MultiCommitGens(1, b"gens_1")
+    gens_n = MultiCommitGens(deg + 1, b"gens_n")
+    runs = []
+    for prove in (ZKSumcheckInstanceProof._prove_rounds,
+                  dp.zk_sumcheck_phase_device):
+        t, tape = Transcript(b"zk"), RandomTape(b"tape", seed=9)
+        out = prove(claim, 4321, 4, tables, which, gens_1, gens_n, t, tape)
+        runs.append((out, DeviceTranscript.host_state(t),
+                     tape.random_scalar(b"next")))
+    host, dev = runs
+    assert dev[0][0] == host[0][0]  # the proof
+    assert dev[0][1:] == host[0][1:]  # r, final claims, last blind
+    assert dev[1:] == host[1:]  # transcript state, tape
+
+
+@pytest.mark.parametrize("with_dotp", [False, True])
+def test_product_layers_on_device_equal_host(with_dotp, no_gates):
+    rng = random.Random(11)
+    B, n = 2, 16
+
+    def table(b, m):
+        return fq.encode_ints([rng.randrange(1, Q) for _ in range(b * m)]
+                              ).reshape(b, m, 8)
+
+    prod = ProductCircuitBatch(table(B, n))
+    dotp = (DotProductCircuitBatch(*(table(2, n // 2) for _ in range(3)))
+            if with_dotp else None)
+    runs = []
+    for prove in (ProductCircuitEvalProofBatched.prove,
+                  dp.prove_product_layers_device):
+        t = Transcript(b"pc")
+        t.append_message(b"before", b"x" * 50)
+        proof, rand = prove(prod, dotp, t)
+        runs.append((proof, rand, DeviceTranscript.host_state(t)))
+    assert runs[1] == runs[0]
+
+
+def test_unipoly_helpers_equal_host():
+    rng = random.Random(1)
+    claim, r = rng.randrange(Q), rng.randrange(Q)
+    for k in (2, 3):
+        es = [rng.randrange(Q) for _ in range(k)]
+        want = UniPoly.from_evals([es[0], (claim - es[0]) % Q] + es[1:])
+        got = dp.unipoly_from_evals(
+            list(limb.unpack(fq.encode_ints(es))), limb.unpack(
+                fq.mont_limbs(claim)))
+        assert fq.decode_to_ints(limb.pack(got)) == want.coeffs
+        ev = dp.unipoly_evaluate(got, limb.unpack(fq.mont_limbs(r)))
+        assert fq.decode_to_ints(limb.pack(ev)[None]) == [want.evaluate(r)]
+        th, td = Transcript(b"u"), DeviceTranscript(b"u", device="cpu")
+        want.append_to_transcript(b"poly", th)
+        dp.unipoly_append(td, b"poly", got)
+        assert DeviceTranscript.host_state(th)[0] == \
+            td.state_words().numpy().tobytes()
+    rs = [rng.randrange(Q) for _ in range(3)]
+    from spartan_tpu_torch.poly import dense
+
+    got = dp._eq_table_dev([fq.mont_limbs(x) for x in rs], "cpu")
+    assert torch.equal(got, dense.eq_evals(rs, "cpu"))
+
+
+@pytest.fixture(scope="module")
+def golden_inst():
+    return Instance.produce_synthetic_r1cs(*SHAPE, seed=424242,
+                                           device="cpu")
+
+
+@pytest.fixture(scope="module")
+def golden_snark_setup(golden_inst):
+    """Gens and the computation commitment (encode runs no sum-check, so
+    the gates do not touch it)."""
+    inst = golden_inst[0]
+    nnz = max(m.get_num_nz_entries()
+              for m in (inst.inst.A, inst.inst.B, inst.inst.C))
+    gens = SNARKGens(*SHAPE, nnz)
+    return gens, *SNARK.encode(inst, gens)
+
+
+def test_golden_nizk_with_device_prover(golden_inst, no_gates):
+    no_gates.setenv("SPARTAN_TPU_DEVICE_PROVER", "1")
+    inst, vars_a, inputs_a = golden_inst
+    gens = NIZKGens(*SHAPE)
+    nizk = NIZK.prove(inst, vars_a, inputs_a, gens,
+                      Transcript(b"golden_nizk"), _tape_seed=31337)
+    assert ser.nizk_to_bytes(nizk) == _golden("nizk_proof.bin")
+    nizk.verify(inst, inputs_a, Transcript(b"golden_nizk"), gens)
+
+
+@pytest.mark.parametrize("gate", GATES)
+def test_golden_snark_with_device_prover(gate, golden_inst,
+                                         golden_snark_setup, no_gates):
+    no_gates.setenv(gate, "1")
+    inst, vars_a, inputs_a = golden_inst
+    gens, comm, decomm = golden_snark_setup
+    snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,
+                        Transcript(b"golden_snark"), _tape_seed=31337)
+    assert ser.snark_to_bytes(snark) == _golden("snark_proof.bin")
+    snark.verify(comm, inputs_a, Transcript(b"golden_snark"), gens,
+                 device="cpu")
