@@ -38,10 +38,25 @@ on 4,097 points that cover every branch of ENCODE; B2 reading its
 challenge through a pointer against the by-value form at (4, 2^20),
 (2, 2^21) and (18, 2^19), in both modes that take a challenge; and the
 same 2^20 NIZK and SNARK proved again under the gate, whose bytes must
-equal the host path's and verify, each device ZK phase and product
-proof fetching once.  It ends with a JSON line per kernel (B2's batched
-mode its own line, K3 and K4 theirs), the card's line from nvidia-smi
-and ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; with no card
+equal the host path's and verify, each device ZK phase, product proof
+and dot-product-log proof fetching once, and B1 launched there only as
+often as on the host path (never with the ZK rounds' tape secrets).
+The bullet rounds' kernels: K5, the grouped variable-base MSM
+(``csrc/point_msm.cu``), against its plain version bit for bit at the
+path's shapes (K5_CASES: the cross terms of the first rounds at n = 2,048 and
+4,096, Cx at 4,096, G folds of 1,024 and 2,048 pairs, a ZK round's 5
+groups of 7, and edge scalars and the identity point), each timed launched one by
+one and in a CUDA graph beside its bound; K6, the bullet round's scalar
+step (``csrc/bullet_step.cu``), in every mode at n = 1,024, 2,048 and
+4,096; then a host round and a device round timed at n = 2^4 ... 2^12
+(``bullet round n ...`` lines: the walls that set
+``protocols/bullet.py::DEVICE_MIN``), each device round fetching once;
+and after the default path's 2^20 NIZK and SNARK (now with device
+rounds) both proved again in the same process with every round on the
+host (``host_rounds {...}``), for the same bytes.  It ends with a JSON
+line per kernel (B2's batched mode its own line, K3, K4, K5 and K6
+theirs), the card's line from nvidia-smi and ``{"ok": true, "device":
+{...}}``.  Any failure raises and exits non-zero; with no card
 it exits 2 before printing any result.  All inputs are made from fixed
 seeds.
 """
@@ -129,7 +144,8 @@ def build_kernels() -> None:
         path, report = _build.compile_kernel(name, verbose=True)
         return path, report, time.perf_counter() - t0
 
-    names = ["row_msm", "fold_evals", "keccak", "ristretto"]
+    names = ["row_msm", "fold_evals", "keccak", "ristretto", "point_msm",
+             "bullet_step"]
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = {n: pool.submit(timed, n) for n in names}
         for name in names:
@@ -779,7 +795,8 @@ def snark_main_path(dev, inst, vars_a, inputs_a) -> dict:
     prove_peak = torch.cuda.max_memory_allocated()
     spans = {k: timer.totals.get(k) for k in SNARK_SPANS}
     if min(prove_launches["row_msm"],
-           prove_launches["fold_evals_by_comb"]["cubic_prod"]) <= 0:
+           prove_launches["fold_evals_by_comb"]["cubic_prod"],
+           prove_launches["point_msm"], prove_launches["bullet_step"]) <= 0:
         raise AssertionError(f"a kernel never launched in prove: "
                              f"{prove_launches}")
 
@@ -863,24 +880,29 @@ def make_instance(dev, log_n: int):
 
 
 def _plains():
+    from spartan_tpu_torch.curve import point_msm as pm
     from spartan_tpu_torch.curve import ristretto as dri
     from spartan_tpu_torch.curve import row_msm as rm
+    from spartan_tpu_torch.ff import bullet_kernel as bk
     from spartan_tpu_torch.ff import round_kernel as rk
     from spartan_tpu_torch.transcript import device as dt
 
     return (rm.row_msm_plain, rk.fold_evals_plain, dt.strobe_step_plain,
-            dri.compress_plain)
+            dri.compress_plain, pm.point_msm_plain, bk.bullet_step_plain)
 
 
 def reset_counts() -> None:
+    from spartan_tpu_torch.curve import point_msm as pm
     from spartan_tpu_torch.curve import ristretto as dri
     from spartan_tpu_torch.curve import row_msm as rm
+    from spartan_tpu_torch.ff import bullet_kernel as bk
     from spartan_tpu_torch.ff import round_kernel as rk
     from spartan_tpu_torch.transcript import device as dt
 
-    rm.row_msm.launches = 0
+    rm.row_msm.launches = pm.point_msm.launches = 0
     rk.fold_evals.launches.clear()
     rk.fold_evals.launches_device_r = 0
+    bk.bullet_step.launches.clear()
     dt.strobe_step.launches = dri.compress.launches = 0
     for f in _plains():
         f.cuda_calls = 0
@@ -889,8 +911,10 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """The launch counts since reset_counts(); raises on a plain-version
     call on the card (every plain version's ``cuda_calls`` is printed)."""
+    from spartan_tpu_torch.curve import point_msm as pm
     from spartan_tpu_torch.curve import ristretto as dri
     from spartan_tpu_torch.curve import row_msm as rm
+    from spartan_tpu_torch.ff import bullet_kernel as bk
     from spartan_tpu_torch.ff import round_kernel as rk
     from spartan_tpu_torch.transcript import device as dt
 
@@ -907,6 +931,9 @@ def read_counts() -> dict:
             "fold_evals_device_r": rk.fold_evals.launches_device_r,
             "strobe_step": dt.strobe_step.launches,
             "ristretto_compress": dri.compress.launches,
+            "point_msm": pm.point_msm.launches,
+            "bullet_step": sum(bk.bullet_step.launches.values()),
+            "bullet_step_by_mode": dict(bk.bullet_step.launches),
             "plain_calls_on_card": plain, "plain_cuda_calls": calls}
 
 
@@ -945,7 +972,8 @@ def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
     peak = torch.cuda.max_memory_allocated()
     mallocs = new_segments(mem0)
     phases = {k: timer.records[k] for k in NIZK_SPANS}
-    if min(launches["row_msm"], launches["fold_evals"]) <= 0:
+    if min(launches["row_msm"], launches["fold_evals"],
+           launches["point_msm"], launches["bullet_step"]) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
 
     blob = ser.nizk_to_bytes(nizk)
@@ -1165,9 +1193,250 @@ def check_fold_evals_device_r(dev, gen) -> dict:
     return result
 
 
+# K5, the grouped variable-base MSM (csrc/point_msm.cu), and K6, the bullet
+# round's scalar step (csrc/bullet_step.cu): the bullet rounds' and the
+# device dot-product-log's kernels, and the device ZK rounds' commitments.
+# K5 at the path's shapes: the first bullet round's cross terms at n =
+# 2,048 (two groups of 1,026, L and R) and n = 4,096 (two
+# of 2,050) of Spark's dot-product-log proofs, Cx at n = 4,096 (one group
+# of 4,097), G folds of 1,024 and 2,048 pairs, a ZK round's 5 groups of
+# 7.  Its bound counts its field products: a point's table (14 unified
+# adds of 9), 256 doublings (8) and 64 adds (9), and N - G adds for the
+# groups.
+K5_CASES = [("cross_2048", (1026, 1026)), ("cross_4096", (2050, 2050)),
+            ("cx_4096", (4097,)), ("fold_1024", (2,) * 1024),
+            ("fold_2048", (2,) * 2048), ("zk_round", (7,) * 5),
+            ("edges", (3, 1, 0, 5))]
+K5_POINT_FP_MULS = 14 * 9 + 256 * 8 + 64 * 9
+K6_SIZES = [1024, 2048, 4096]
+# the inverse's chain: q - 2 has 253 bits, 64 of them set below the top
+FQ_INV_MULS = 252 + 64
+# bullet rounds compared on the host and on the device (n = 2^4 ... 2^12)
+ROUND_LOGS = range(4, 13)
+
+
+def point_msm_bound(sizes) -> dict:
+    n, groups = sum(sizes), len(sizes)
+    products = n * K5_POINT_FP_MULS + (n - groups) * 9
+    t_ops = products * FP_MUL_WIDE * IMAD_PER_WIDE / IMAD_S * 1e3
+    t_bytes = (n * (128 + 32) + groups * (128 + 4)) / HBM_BYTES_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def bullet_step_bound(mode: str, n: int) -> dict:
+    """Bytes: each input read once, each output written once.  Fold adds
+    the inverse's dependent chain: FQ_INV_MULS Montgomery products of
+    FQ_MUL_WIDE wide multiply-adds (two IMAD slots each), issued one
+    after another by one thread at one instruction a clock."""
+    m = n // 2
+    bytes_ = {"cross": 2 * n * 32 + 64 + 2 * (m + 2) * 32,
+              "fold": 2 * n * 32 + 64 + 64 + n * 32 + m * 64}[mode]
+    t_bytes = bytes_ / HBM_BYTES_S * 1e3
+    t_ops = (FQ_INV_MULS * FQ_MUL_WIDE * IMAD_PER_WIDE / CLOCK_HZ * 1e3
+             if mode == "fold" else 0.0)
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def random_points(gen, n: int, dev):
+    """(n, 4, 8) points s * B for random s (made by B1), the identity
+    first."""
+    import torch
+
+    from spartan_tpu_torch.commitments import build_table
+    from spartan_tpu_torch.core import edwards as hed
+    from spartan_tpu_torch.curve import edwards as ed
+    from spartan_tpu_torch.curve import row_msm as rm
+
+    s = rand_elems(gen, n, dev).reshape(n, 1, 8)
+    pts = rm.row_msm(s, build_table([hed.BASEPOINT], dev))
+    pts[0] = ed.stack(ed.identity((), dev))
+    return pts.contiguous()
+
+
+def check_point_msm(dev, gen) -> dict:
+    """K5 against its plain version, bit for bit, at K5_CASES (the
+    scalars 0, 1 and q - 1 and the identity point first); each case
+    timed launched one by one and in a CUDA graph."""
+    import torch
+
+    from spartan_tpu_torch.core.field import Q
+    from spartan_tpu_torch.curve import point_msm as pm
+
+    result = {}
+    for name, sizes in K5_CASES:
+        offs = [0]
+        for k in sizes:
+            offs.append(offs[-1] + k)
+        n = offs[-1]
+        pts = random_points(gen, n, dev)
+        s = with_edges(rand_elems(gen, n, dev), [0, 1, Q - 1])
+        t0 = time.perf_counter()
+        want = pm.point_msm_plain(pts, s, offs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = pm.point_msm(pts, s, offs)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"point_msm differs from its plain version "
+                                 f"at {name}")
+        ms = cuda_ms(lambda: pm.point_msm(pts, s, offs), 5)
+        graph = graph_ms(lambda: pm.point_msm(pts, s, offs), 5)
+        bound = point_msm_bound(sizes)
+        log(f"point_msm (K5) {name} ({n} points, {len(sizes)} groups, "
+            f"{pm.lanes(offs)} lanes): max_abs_err {err}; {ms:.4f} ms "
+            f"launched one by one, {graph:.4f} ms in a CUDA graph, bound "
+            f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), plain "
+            f"{plain_ms:.1f} ms")
+        result[name] = dict(points=n, groups=len(sizes), ms=ms,
+                            graph_ms=graph, plain_ms=plain_ms,
+                            max_abs_err=err, **bound)
+    return result
+
+
+def check_bullet_step(dev, gen) -> dict:
+    """K6 against its plain version in every mode (fold with u as
+    Montgomery words and as challenge bytes) at K6_SIZES; cross and fold
+    timed in a CUDA graph."""
+    import torch
+
+    from spartan_tpu_torch.ff.bullet_kernel import (bullet_step,
+                                                    bullet_step_plain)
+
+    result = {}
+    chal = torch.randint(0, 256, (64,), generator=gen,
+                         dtype=torch.int64).to(torch.uint8).to(dev)
+    err = 0
+    for n in K6_SIZES:
+        a, b = rand_elems(gen, n, dev), rand_elems(gen, n, dev)
+        x = rand_elems(gen, 4, dev)  # blinds, u, blind_fin
+        for mode, u in (("cross", None), ("fold", x[2]), ("fold", chal)):
+            if mode == "cross":
+                args = (a, b, x[:2])
+                got, want = [bullet_step(mode, *args)], [
+                    bullet_step_plain(mode, *args)]
+            else:
+                bk, bp = x[3].clone(), x[3].clone()
+                t0 = time.perf_counter()
+                want = [*bullet_step_plain(mode, a, b, u, x[:2], bp), bp]
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                got = [*bullet_step(mode, a, b, u, x[:2], bk), bk]
+            torch.cuda.synchronize()
+            err = max(err, max(max_abs_err(g, w) for g, w in zip(got, want)))
+        if err:
+            raise AssertionError(f"bullet_step differs from its plain "
+                                 f"version at n {n}")
+        bf = x[3].clone()
+        for mode, fn in (("cross", lambda: bullet_step("cross", a, b, x[:2])),
+                         ("fold", lambda: bullet_step("fold", a, b, chal,
+                                                      x[:2], bf))):
+            ms = graph_ms(lambda: [fn() for _ in range(10)], 5) / 10
+            eager = cuda_ms(fn, 20)
+            bound = bullet_step_bound(mode, n)
+            log(f"bullet_step (K6) {mode} n {n}: max_abs_err 0; {ms:.4f} ms "
+                f"in a CUDA graph ({eager:.4f} ms launched one by one), "
+                f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})"
+                + (f", plain {plain_ms:.1f} ms" if mode == "fold" else ""))
+            result[f"{mode}_{n}"] = dict(ms=ms, eager_ms=eager, **bound)
+        result[f"fold_{n}"]["plain_ms"] = plain_ms
+    # head and tail, one thread each
+    v = rand_elems(gen, 8, dev)
+    for mode, args in (("head", (chal, v[0], v[1])),
+                       ("tail", (chal, v[0], v[1], v[2], v[3:6]))):
+        got = bullet_step(mode, *args)
+        want = bullet_step_plain(mode, *args)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"bullet_step {mode} differs from its plain "
+                                 f"version")
+        result[f"{mode}_ms"] = graph_ms(
+            lambda: [bullet_step(mode, *args) for _ in range(10)], 5) / 10
+        log(f"bullet_step (K6) {mode}: max_abs_err 0; "
+            f"{result[f'{mode}_ms']:.4f} ms in a CUDA graph")
+    result["max_abs_err"] = err
+    return result
+
+
+def bullet_round_times(dev) -> dict:
+    """One host round (``bullet.host_round``) and one device round
+    (``bullet.device_round``) at n = 2^4 ... 2^12 on the same inputs and
+    transcript, each timed from a synchronised card to a synchronised
+    card, medians of 5: the times that set ``bullet.DEVICE_MIN``.  Both
+    must give the same L, R and folded a, b, G and blind_fin, and a
+    device round must fetch once."""
+    import statistics
+
+    import torch
+
+    from spartan_tpu_torch.commitments import MultiCommitGens
+    from spartan_tpu_torch.core import edwards as hed
+    from spartan_tpu_torch.core.field import P25519 as P
+    from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.curve import edwards as ed
+    from spartan_tpu_torch.ff import fq
+    from spartan_tpu_torch.protocols import bullet
+    from spartan_tpu_torch.utils import rt
+
+    def same(p, q):  # one point of the curve (projective coordinates)
+        return (p.X * q.Z - q.X * p.Z) % P == 0 and \
+            (p.Y * q.Z - q.Y * p.Z) % P == 0
+
+    gen = torch.Generator().manual_seed(77)
+    q_pt = hed.BASEPOINT.mul(123456789)
+    rounds = {}
+    for log_n in ROUND_LOGS:
+        n = 1 << log_n
+        gens = MultiCommitGens(n, b"chip_smoke bullet")
+        G, qh = gens.points(dev), ed.stack(ed.from_host([q_pt, gens.h], dev))
+        a, b = rand_elems(gen, n, dev), rand_elems(gen, n, dev)
+        a_i, b_i = fq.decode_to_ints(a), fq.decode_to_ints(b)
+        blinds = fq.encode_ints([12345, 67890], dev)
+        times = {"host": [], "device": []}
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = bullet.host_round(Transcript(b"round"), q_pt, gens.h, a_i,
+                                  b_i, gens.G, 12345, 67890, 99, dev)
+            times["host"].append(time.perf_counter() - t0)
+            bf = fq.encode_ints([99], dev)[0]
+            torch.cuda.synchronize()
+            f0 = rt.fetches
+            t0 = time.perf_counter()
+            d = bullet.device_round(Transcript(b"round"), a, b, G, qh,
+                                    blinds, bf)
+            torch.cuda.synchronize()
+            times["device"].append(time.perf_counter() - t0)
+            if rt.fetches - f0 != 1:
+                raise AssertionError(f"a device round at n {n} fetched "
+                                     f"{rt.fetches - f0} times")
+        got = (fq.decode_to_ints(d[0]), fq.decode_to_ints(d[1]),
+               fq.decode_to_ints(bf[None])[0], d[3], d[4])
+        if got != (h[0], h[1], h[3], h[4], h[5]) or not all(
+                same(p, q) for p, q in zip(ed.to_host(ed.unstack(d[2])),
+                                           h[2])):
+            raise AssertionError(f"the device round at n {n} differs from "
+                                 f"the host round")
+        rounds[n] = {p: statistics.median(v) * 1e3 for p, v in times.items()}
+        log(f"bullet round n {n}: host {rounds[n]['host']:.3f} ms, device "
+            f"{rounds[n]['device']:.3f} ms (medians of 5; each device round "
+            f"one fetch; the same L, R and folded values)")
+    wins = [n // 2 for n in rounds
+            if all(rounds[m]["device"] < rounds[m]["host"]
+                   for m in rounds if m >= n)]
+    measured = min(wins) if wins else None
+    log(f"bullet rounds: the device round wins from n/2 = {measured} on; "
+        f"bullet.DEVICE_MIN['cuda'] = {bullet.DEVICE_MIN['cuda']}")
+    return {"round_ms": rounds, "device_wins_from_half": measured,
+            "device_min": bullet.DEVICE_MIN["cuda"]}
+
+
 class FetchesPerCall:
     """Counts the fetches (utils/rt.py) of each call of the device
-    prover's two entry points while active."""
+    prover's three entry points while active."""
 
     def __enter__(self):
         from spartan_tpu_torch.protocols import device_prover as dp
@@ -1176,7 +1445,7 @@ class FetchesPerCall:
         self.calls = []
         self._orig = {}
         for name in ("zk_sumcheck_phase_device",
-                     "prove_product_layers_device"):
+                     "prove_product_layers_device", "dotproduct_log_device"):
             fn = getattr(dp, name)
             self._orig[name] = fn
 
@@ -1205,7 +1474,8 @@ class FetchesPerCall:
 
 
 GATED_KERNELS = ("row_msm", "fold_evals", "fold_evals_device_r",
-                 "strobe_step", "ristretto_compress")
+                 "strobe_step", "ristretto_compress", "point_msm",
+                 "bullet_step")
 
 
 def device_prover_paths(dev, inst, vars_a, inputs_a, nizk_ctx,
@@ -1279,6 +1549,60 @@ def device_prover_paths(dev, inst, vars_a, inputs_a, nizk_ctx,
     return out
 
 
+def host_rounds_paths(inst, vars_a, inputs_a, nizk_ctx, snark_ctx) -> dict:
+    """The 2^20 NIZK and SNARK proved again in this process with every
+    bullet round on the host (DEVICE_MIN infinite): the bytes must equal
+    the default path's.  Walls and the dot-product-log spans beside the
+    default path's."""
+    import math
+
+    import torch
+
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import NIZK, SNARK
+    from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.protocols import bullet
+    from spartan_tpu_torch.utils import rt, timer
+
+    saved = bullet.DEVICE_MIN["cuda"]
+    bullet.DEVICE_MIN["cuda"] = math.inf
+    out = {}
+    try:
+        for what, prove, ser_fn, ctx in (
+                ("nizk", lambda: NIZK.prove(
+                    inst, vars_a, inputs_a, nizk_ctx["gens"],
+                    Transcript(b"chip_smoke"), _tape_seed=7),
+                 ser.nizk_to_bytes, nizk_ctx),
+                ("snark", lambda: SNARK.prove(
+                    inst, snark_ctx["comm"], snark_ctx["decomm"], vars_a,
+                    inputs_a, snark_ctx["gens"],
+                    Transcript(b"chip_smoke_snark"), _tape_seed=7),
+                 ser.snark_to_bytes, snark_ctx)):
+            timer.totals.clear()
+            f0 = rt.fetches
+            reset_counts()
+            t0 = time.perf_counter()
+            proof = prove()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            if ser_fn(proof) != ctx["blob"]:
+                raise AssertionError(f"the {what} bytes with host bullet "
+                                     f"rounds differ from the default "
+                                     f"path's")
+            if launches["point_msm"] or launches["bullet_step"]:
+                raise AssertionError(f"{what} with host rounds launched "
+                                     f"K5 or K6: {launches}")
+            out[what] = {"prove_s": wall, "fetches": rt.fetches - f0,
+                         "dotproduct_log_s": timer.totals.get(
+                             "polyeval::dotproduct_log")}
+    finally:
+        bullet.DEVICE_MIN["cuda"] = saved
+    out["bytes_equal_default_path"] = True
+    log("host_rounds " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1306,6 +1630,9 @@ def main() -> int:
     k3 = check_strobe_step(dev, gen)
     k4 = check_compress(dev, gen)
     fold["device_r"] = check_fold_evals_device_r(dev, gen)
+    k5 = check_point_msm(dev, gen)
+    k6 = check_bullet_step(dev, gen)
+    rounds = bullet_round_times(dev)
     golden(dev)
     golden_snark(dev)
     inst, vars_a, inputs_a, setup_s = make_instance(dev, LOG_N)
@@ -1316,8 +1643,19 @@ def main() -> int:
     if (prod_chain["launches_per_prove"]
             != snark["launches"]["prove"]["fold_evals_by_comb"]["cubic_prod"]):
         raise AssertionError("the replay's launches differ from the prove's")
+    host_rounds = host_rounds_paths(inst, vars_a, inputs_a, nizk_ctx,
+                                    snark_ctx)
     gated = device_prover_paths(dev, inst, vars_a, inputs_a, nizk_ctx,
                                 snark_ctx)
+    # B1 under the gate only where the host path launches it (the witness
+    # and Spark commitments): never with the ZK rounds' tape secrets
+    for what, host in (("nizk", summary["launches"]),
+                       ("snark", snark["launches"]["prove"])):
+        if gated[what]["launches"]["row_msm"] != host["row_msm"]:
+            raise AssertionError(f"B1 under the gate in the {what} prove: "
+                                 f"{gated[what]['launches']['row_msm']} "
+                                 f"launches, the host path's "
+                                 f"{host['row_msm']}")
     by_path = {
         name: {"nizk_prove": summary["launches"][name],
                "snark_encode": snark["launches"]["encode"][name],
@@ -1326,7 +1664,8 @@ def main() -> int:
                "snark_prove_device_prover":
                    gated["snark"]["launches"][name]}
         for name in ("row_msm", "fold_evals", "fold_evals_device_r",
-                     "strobe_step", "ristretto_compress")}
+                     "strobe_step", "ristretto_compress", "point_msm",
+                     "bullet_step")}
     timed = PROD_TIMED + ("fold_evals",)
     kernels = [
         dict(name="row_msm", route="cuda",
@@ -1361,6 +1700,27 @@ def main() -> int:
              launches=gated["nizk"]["launches"]["ristretto_compress"],
              launches_by_path=by_path["ristretto_compress"],
              library_ms=None, **k4),
+        dict(name="point_msm", route="cuda",
+             source="spartan_tpu_torch/csrc/point_msm.cu",
+             replaces="spartan_tpu/curve/edwards.py:100, "
+                      "spartan_tpu/curve/msm.py:147",
+             launches=summary["launches"]["point_msm"],
+             launches_by_path=by_path["point_msm"], library_ms=None,
+             shape=list(K5_CASES[0][1]), max_abs_err=0,
+             ms=k5["cross_2048"]["ms"], plain_ms=k5["cross_2048"]["plain_ms"],
+             bound_ms=k5["cross_2048"]["bound_ms"],
+             bound_by=k5["cross_2048"]["bound_by"], cases=k5),
+        dict(name="bullet_step", route="cuda",
+             source="spartan_tpu_torch/csrc/bullet_step.cu",
+             replaces="spartan_tpu/protocols/bullet.py:89, "
+                      "spartan_tpu/protocols/device_prover.py:682",
+             launches=summary["launches"]["bullet_step"],
+             launches_by_path=by_path["bullet_step"], library_ms=None,
+             shape=[2048, "fold"], max_abs_err=k6["max_abs_err"],
+             ms=k6["fold_2048"]["ms"], plain_ms=k6["fold_2048"]["plain_ms"],
+             bound_ms=k6["fold_2048"]["bound_ms"],
+             bound_by=k6["fold_2048"]["bound_by"], modes=k6,
+             bullet_rounds=rounds, host_rounds=host_rounds),
     ]
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,11 @@ Generator derivation mirrors the reference MultiCommitGens::new
 basepoint), squeezed in 64-byte chunks, each mapped to the group by the
 RFC 9496 one-way map.  Derivation is host-side; the row-MSM's table of
 multiples ``tab[d][i] = d * G_i`` (precomputed affine form, see
-``build_table``) is built once per generator object and device and kept
-on the object, one entry per device (the JAX package cached it in an
-unbounded module dict keyed by ``id``).
+``build_table``) and the generators themselves in extended coordinates
+(``points``, for the device bullet rounds' variable-base MSM) are built
+once per generator object and device and kept on the object, one entry
+per device (the JAX package cached them in unbounded module dicts keyed
+by ``id``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from .core import edwards as hed
 from .core import ristretto as hri
 from .core.field import P25519 as P
 from .core.field import Q
+from .curve import edwards as ed
 from .ff import limb
 
 
@@ -60,11 +63,16 @@ class MultiCommitGens:
         """(16, 1, 3, 8) int32 multiples of h on ``device``."""
         return self._table("h", [self.h], device)
 
+    def points(self, device) -> torch.Tensor:
+        """(n, 4, 8) int32: G in extended coordinates on ``device``."""
+        return self._table("P", self.G, device)
+
     def _table(self, which: str, pts, device) -> torch.Tensor:
         key = (which, str(torch.device(device)))
         tab = self._tables.get(key)
         if tab is None:
-            tab = build_table(pts, device)
+            tab = (ed.stack(ed.from_host(pts, device)) if which == "P"
+                   else build_table(pts, device))
             self._tables[key] = tab
         return tab
 

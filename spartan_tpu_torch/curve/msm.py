@@ -1,11 +1,17 @@
 """Multi-scalar multiplication entry points.
 
-All device MSMs go through kernel B1 (``row_msm``): ``msm_rows`` is the
-row-batched commitment shape itself, ``msm`` is one row.  ``vmsm`` is
-the host-facing vartime MSM of the protocols (python ints, host points):
-below 4096 points it stays on the host (native Pippenger), as the JAX
-package's ``curve/msm.py:587-604`` does.  The JAX package's XLA MSM
-families were TPU compile choices and have no counterpart here.
+The fixed-base device MSMs go through kernel B1 (``row_msm``):
+``msm_rows`` is the row-batched commitment shape itself, ``msm`` is one
+row.  ``vmsm`` is the host-facing vartime MSM of the protocols (python
+ints, host points): below ``HOST_MAX`` points it stays on the host
+(native Pippenger), as the JAX package's ``curve/msm.py:587-604`` does.
+The variable-base MSMs of the bullet rounds, whose points change every
+round (the folded generators), go through kernel K5
+(``curve/point_msm.py``), chosen by ``protocols/bullet.py::DEVICE_MIN``
+(a measured constant, not an option), and so do the device
+dot-product-log's under ``SPARTAN_TPU_DEVICE_PROVER=1``.  The JAX
+package's XLA MSM families were TPU compile choices and have no
+counterpart here.
 """
 
 from __future__ import annotations

@@ -1,18 +1,19 @@
 """Device-resident prover loops (the JAX package's
-``protocols/device_prover.py``): a ZK sum-check phase, or the whole tree
-of Spark's batched product-layer proofs, runs start to finish on the
-device with no fetch per round, and the proof comes back in ONE packed
-fetch at the end.
+``protocols/device_prover.py``): a ZK sum-check phase, the whole tree
+of Spark's batched product-layer proofs, or a dot-product-log proof runs
+start to finish on the device with no fetch per round, and the proof
+comes back in ONE packed fetch at the end.
 
 The Fiat-Shamir transcript lives on the device (``transcript.device``),
 so a round's challenge never leaves it: kernel B2 (``ff.round_kernel``)
-folds by a challenge it reads through a pointer.  In a ZK round every
-Pedersen commitment is one launch of kernel B1 (``curve.row_msm``) on a
-multiples table of the phase's bases built once per phase, compressed
+folds by a challenge it reads through a pointer, and so does kernel K6
+(``ff.bullet_kernel``) in a bullet round.  In a ZK round the Pedersen
+commitments are launches of kernel K5 (``curve.point_msm``, constant
+time in the tape secrets they commit) on the phase's bases, compressed
 on the device by kernel K4 (``curve.ristretto.compress``) and absorbed
-by the device transcript (kernel K3).  The scalar glue of a round (the
-round polynomial, the sigma proof's responses) is plain limb ops on the
-device.
+by the device transcript (kernel K3).  The scalar glue of a ZK round
+(the round polynomial, the sigma proof's responses) is plain limb ops on
+the device; a bullet round's is K6.
 
 Byte-exact with the host path: the same transcript schedule
 (sumcheck.rs:427-776, nizk/mod.rs:292-405, product_tree.rs:258-382) and
@@ -21,9 +22,9 @@ the same RandomTape draws, made up front in the reference order
 JAX package's padded live-prefix layout answered the TPU's compile
 costs and is not ported: tables halve as on the host path.
 
-Turned on by ``SPARTAN_TPU_DEVICE_PROVER=1`` (ZK phases and product
-layers) or ``SPARTAN_TPU_DEVICE_NONZK=1`` (product layers only); see
-``protocols/sumcheck.py``.
+Turned on by ``SPARTAN_TPU_DEVICE_PROVER=1`` (ZK phases, product
+layers and dot-product-log proofs) or ``SPARTAN_TPU_DEVICE_NONZK=1``
+(product layers only); see ``protocols/sumcheck.py``.
 """
 
 from __future__ import annotations
@@ -31,16 +32,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..commitments import build_table, commit_scalar
+from ..commitments import commit_scalar
 from ..core import ristretto as hri
 from ..core.field import Q
 from ..curve import edwards as ed
+from ..curve.point_msm import point_msm
 from ..curve.ristretto import compress
-from ..curve.row_msm import row_msm
 from ..ff import fq, limb
+from ..ff.bullet_kernel import bullet_step
 from ..ff.round_kernel import fold_evals
 from ..transcript.device import DeviceTranscript, scalar_to_bytes32
 from ..utils import rt
+from .bullet import BulletReductionProof, round_commit, round_fold
 
 _INV2 = pow(2, -1, Q)
 _INV6 = pow(6, -1, Q)
@@ -116,12 +119,6 @@ def _eq_table_dev(rand: list, device) -> torch.Tensor:
 # one upload, one fetch
 # ---------------------------------------------------------------------------
 
-def _words(xs) -> np.ndarray:
-    """Canonical ints -> their Montgomery forms as int32 words."""
-    raw = b"".join(((x % Q) * fq.R % Q).to_bytes(32, "little") for x in xs)
-    return np.frombuffer(raw, dtype="<i4")
-
-
 def _upload(parts: list[np.ndarray], device) -> list[torch.Tensor]:
     """Host int32 arrays -> device tensors of the same shapes, in one
     copy.  Each part starts on a 32-byte boundary (the kernels load 16
@@ -174,15 +171,16 @@ def _fetch(tensors: list[torch.Tensor], t: DeviceTranscript, transcript
 # ZK sum-check phase
 # ---------------------------------------------------------------------------
 
-def _commit_rows(rows16: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
-    """Pedersen commitments of (L, R, 16) Montgomery rows against the
-    phase's table: one B1 launch, one K4 launch -> (L, 8) int32 (the
-    32-byte encodings).  Not constant time: the rows hold tape secrets
-    (blinds, d, r_delta, r_beta) and B1's table loads are indexed by
-    their 4-bit digits, where the host path commits the same values on
-    the constant-time ladder (``core.edwards.msm_ct``)."""
-    scalars = limb.pack(fq.redc16(rows16))  # from_mont: canonical
-    return compress(ed.unstack(row_msm(scalars, tab)))
+def _commit_rows(rows16: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
+    """Pedersen commitments of (L, k, 16) Montgomery rows against the
+    phase's k bases ((k, 4, 8) points): one K5 launch, a group a row,
+    then one K4 launch -> (L, 8) int32 (the 32-byte encodings).  The
+    rows hold tape secrets (blinds, d, r_delta, r_beta); K5 is constant
+    time in them, as the host path's ladder (``core.edwards.msm_ct``)."""
+    L, k = rows16.shape[:2]
+    scalars = limb.pack(fq.redc16(rows16)).view(L * k, limb.NWORDS)
+    return compress(ed.unstack(point_msm(
+        bases.repeat(L, 1, 1), scalars, tuple(range(0, L * k + 1, k)))))
 
 
 def _as_bytes(enc: torch.Tensor) -> torch.Tensor:
@@ -216,16 +214,16 @@ def zk_sumcheck_phase_device(
     comm_claim = hri.encode(commit_scalar(claim, blind_claim, gens_1))
 
     # one upload: scalars, the claim's commitment, the transcript state
-    # and the table of the phase's bases [G_0..G_deg, h_n, g_1, h_1]
-    # (the two generator families have distinct blinding generators)
+    # and the phase's bases [G_0..G_deg, h_n, g_1, h_1] (the two
+    # generator families have distinct blinding generators)
     bases = list(gens_n.G[:deg + 1]) + [gens_n.h, gens_1.G[0], gens_1.h]
     st_bytes, pos, pos_begin, flags = DeviceTranscript.host_state(transcript)
-    (scal, comm0, state, tab) = _upload([
-        _words([claim, blind_claim] + blinds_poly + blinds_evals + draws
-               + [2] + [1] * deg),
+    (scal, comm0, state, bases) = _upload([
+        fq.encode_ints([claim, blind_claim] + blinds_poly + blinds_evals
+                       + draws + [2] + [1] * deg).numpy(),
         np.frombuffer(comm_claim, dtype="<i4"),
         np.frombuffer(st_bytes, dtype="<i4"),
-        build_table(bases, "cpu").numpy()], dev)
+        ed.stack(ed.from_host(bases)).numpy()], dev)
     scal = limb.unpack(scal.view(-1, limb.NWORDS))
     claim_j, blind_sc = scal[0], scal[1]
     bp, be = scal[2:2 + k], scal[2 + k:2 + 2 * k]
@@ -251,14 +249,15 @@ def zk_sumcheck_phase_device(
     def round_poly(ev, claim):
         return unipoly_from_evals(list(limb.unpack(ev)[:deg]), claim)
 
-    # A round's commitments in two B1 launches: comm_eval with the next
+    # A round's commitments in two K5 launches: comm_eval with the next
     # round's comm_poly and delta (both need only this round's challenge),
     # then Cy with beta (they need the combining weights)
     add, sub, mul = fq.add16, fq.sub16, fq.mul16
     out = []
     tabs, ev = fold_evals(tables, None, "evals")
     coeffs = round_poly(ev, claim_j)
-    comm_poly, delta = _commit_rows(torch.stack(poly_rows(coeffs, 0)), tab)
+    comm_poly, delta = _commit_rows(torch.stack(poly_rows(coeffs, 0)),
+                                    bases)
     for j in range(k):
         t.append_point(b"comm_poly", _as_bytes(comm_poly))
         r_st = t.challenge_scalar(b"challenge_nextround")
@@ -270,7 +269,7 @@ def zk_sumcheck_phase_device(
         if j + 1 < k:
             coeffs_next = round_poly(ev, eval_r)
             rows += poly_rows(coeffs_next, j + 1)
-        enc = _commit_rows(torch.stack(rows), tab)
+        enc = _commit_rows(torch.stack(rows), bases)
         comm_eval = enc[0]
         t.append_point(b"comm_claim_per_round", comm_claim_j)
         t.append_point(b"comm_eval", _as_bytes(comm_eval))
@@ -294,7 +293,7 @@ def zk_sumcheck_phase_device(
         t.append_point(b"Cx", _as_bytes(comm_poly))
         dotp = fq.sum16(mul(a, d_vec))
         cy, beta = _commit_rows(torch.stack([pair(target, blind),
-                                             pair(dotp, r_beta)]), tab)
+                                             pair(dotp, r_beta)]), bases)
         t.append_point(b"Cy", _as_bytes(cy))
         t.append_scalar_vector(b"a", limb.pack(a))
         t.append_point(b"delta", _as_bytes(delta))
@@ -411,3 +410,102 @@ def prove_product_layers_device(prod, dotp, transcript):
                                         left, right))
     rand_ints = rd.scalars(len(rand))
     return ProductCircuitEvalProofBatched(layers, claims_dotp), rand_ints
+
+
+# ---------------------------------------------------------------------------
+# DotProductProofLog with its bullet rounds (nizk/mod.rs:421-578,
+# nizk/bullet.rs:32-135)
+# ---------------------------------------------------------------------------
+
+def dotproduct_log_device(gens, transcript, tape, x_dev, blind_x: int,
+                          a_dev, a_ints: list, y: int, blind_y: int):
+    """Device replacement for DotProductProofLog.prove (the JAX package's
+    ``device_prover.py:639-889``): the same arguments and results
+    (proof, Cx, Cy), the host ``transcript`` advanced to the same final
+    state.  Every round on the device with the transcript on the card:
+    K6 cross, K5 (L, R), K4, K3 absorbs them and squeezes u, K6 folds by
+    u read through its pointer and K5 folds the generators; the head's
+    Cx, Cy and Q and the tail's delta and beta are K5 too, r and c go to
+    K6.  One packed fetch."""
+    from .dotproduct_log import DotProductProofLog
+
+    n = x_dev.shape[0]
+    assert gens.n == n and n >= 2
+    lg_n = n.bit_length() - 1
+    dev = x_dev.device
+
+    # RandomTape draws, reference order (the duplicated "r_delta" label
+    # of nizk/mod.rs:446-448 included)
+    d = tape.random_scalar(b"d")
+    r_delta = tape.random_scalar(b"r_delta")
+    r_beta = tape.random_scalar(b"r_delta")
+    v1 = tape.random_vector(b"blinds_vec_1", lg_n)
+    v2 = tape.random_vector(b"blinds_vec_2", lg_n)
+
+    # one upload: Montgomery scalars, K5's canonical scalars, the
+    # transcript state and the points [h_n, g_1, h_1]
+    canon = b"".join((x % Q).to_bytes(32, "little") for x in
+                     (blind_x, y, blind_y, d, r_delta, d, r_beta))
+    st_bytes, pos, pos_begin, flags = DeviceTranscript.host_state(transcript)
+    (scal, can, state, pts) = _upload([
+        fq.encode_ints([blind_x, blind_y] + [x for p in zip(v1, v2)
+                                              for x in p]
+                       + [d, r_delta, r_beta]).numpy(),
+        np.frombuffer(canon, dtype="<i4"),
+        np.frombuffer(st_bytes, dtype="<i4"),
+        ed.stack(ed.from_host([gens.gens_n.h, gens.gens_1.G[0],
+                               gens.gens_1.h])).numpy()], dev)
+    scal = scal.view(-1, limb.NWORDS)
+    blinds = scal[2:2 + 2 * lg_n].view(lg_n, 2, limb.NWORDS)
+    drr = scal[2 + 2 * lg_n:]
+    can = can.view(-1, limb.NWORDS)
+    t = DeviceTranscript(None, _state=state.view(torch.uint8), _pos=pos,
+                         _pos_begin=pos_begin, _flags=flags)
+    t.append_protocol_name(DotProductProofLog.PROTOCOL)
+
+    # Cx = <x, G> + blind_x h_n and Cy = y g_1 + blind_y h_1: one launch
+    G = gens.gens_n.points(dev)
+    enc_c = compress(ed.unstack(point_msm(
+        torch.cat([G, pts]), torch.cat([fq.from_mont(x_dev), can[:3]]),
+        (0, n + 1, n + 3))))
+    t.append_point(b"Cx", _as_bytes(enc_c[0]))
+    t.append_point(b"Cy", _as_bytes(enc_c[1]))
+    # [Scalar]::append_to_transcript of the public vector, from the host
+    t.append_message(b"a", b"begin_append_vector")
+    for v in a_ints:
+        t.append_message(b"a", (v % Q).to_bytes(32, "little"))
+    t.append_message(b"a", b"end_append_vector")
+
+    # r, blind_Gamma = blind_x + r blind_y (the bullet's blind_fin, which
+    # the folds update in place) and Q = r g_1
+    head = bullet_step("head", t.challenge_bytes(b"r", 64), scal[0], scal[1])
+    blind_fin = head[1]
+    Q_pt = point_msm(pts[1:2], head[:1], (0, 1))
+    qh = torch.cat([Q_pt, pts[:1]])  # the bullet's Q and H (= h_n)
+
+    a, b, out = x_dev, a_dev, [enc_c]
+    for j in range(lg_n):
+        enc = round_commit(a, b, G, qh, blinds[j])
+        t.append_point(b"L", _as_bytes(enc[0]))
+        t.append_point(b"R", _as_bytes(enc[1]))
+        a, b, G = round_fold(a, b, G, t.challenge_bytes(b"u", 64),
+                             blinds[j], blind_fin)
+        out.append(enc)
+
+    # delta = d g_hat + r_delta h_1, beta = d Q + r_beta h_1
+    enc_db = compress(ed.unstack(point_msm(
+        torch.cat([G, pts[2:], Q_pt, pts[2:]]), can[3:], (0, 2, 4))))
+    t.append_point(b"delta", _as_bytes(enc_db[0]))
+    t.append_point(b"beta", _as_bytes(enc_db[1]))
+    z = bullet_step("tail", t.challenge_bytes(b"c", 64), a[0], b[0],
+                    blind_fin, drr)
+    rd = _fetch(out + [enc_db, z], t, transcript)
+    cx, cy = rd.bytes32(), rd.bytes32()
+    L_vec, R_vec = [], []
+    for _ in range(lg_n):
+        L_vec.append(rd.bytes32())
+        R_vec.append(rd.bytes32())
+    delta, beta = rd.bytes32(), rd.bytes32()
+    z1, z2 = rd.scalars(2)
+    return (DotProductProofLog(BulletReductionProof(L_vec, R_vec), delta,
+                               beta, z1, z2), cx, cy)

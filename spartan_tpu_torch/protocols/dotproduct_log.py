@@ -1,7 +1,12 @@
 """DotProductProofLog (reference nizk/mod.rs:421-578): log-size ZK
 dot-product argument via the bullet reduction.  The witness vector and
 the public vector are device tables; transcript and final sigma algebra
-are host-side.
+are host-side; the large bullet rounds run on the device (``bullet.py``),
+and with them the commitment Cx (kernel K5, constant time).
+Under ``SPARTAN_TPU_DEVICE_PROVER=1`` the whole proof runs on the device
+with its transcript on the card and one fetch
+(``device_prover.dotproduct_log_device``), as the JAX package's
+``dotproduct_log.py:43-56`` does under its own gate.
 """
 
 from __future__ import annotations
@@ -16,17 +21,13 @@ from ..core.edwards import msm_ct
 from ..core.field import Q
 from ..core.merlin import RandomTape, Transcript
 from ..curve import edwards as ded
-from ..curve import msm as dmsm
-from ..ff import fq
+from ..curve.point_msm import point_msm
+from ..curve.ristretto import compress
+from ..ff import fq, limb
+from ..utils import rt
 from ..utils.errors import ProofVerifyError
-from .bullet import BulletReductionProof
+from .bullet import DEVICE_MIN, BulletReductionProof
 from .sigma import DotProductProofGens, _decompress
-
-# Cx commitments of at most this many entries run on the host (native
-# Pippenger, ~10 ms at the 2^10 R side of a 2^20 prove); larger ones go
-# through the row-MSM kernel.
-HOST_COMMIT_MAX = 1 << 14
-
 
 @dataclass
 class DotProductProofLog:
@@ -45,6 +46,13 @@ class DotProductProofLog:
               ) -> tuple["DotProductProofLog", bytes, bytes]:
         """x_dev / a_dev: (n, 8) Montgomery tables; a_ints: the same
         public vector as ints (for the transcript append)."""
+        from .sumcheck import _use_device_prover
+
+        if _use_device_prover() and x_dev.shape[0] >= 2:
+            from .device_prover import dotproduct_log_device
+
+            return dotproduct_log_device(gens, transcript, tape, x_dev,
+                                         blind_x, a_dev, a_ints, y, blind_y)
         transcript.append_protocol_name(DotProductProofLog.PROTOCOL)
         n = x_dev.shape[0]
         assert gens.n == n
@@ -59,13 +67,20 @@ class DotProductProofLog:
         v2 = tape.random_vector(b"blinds_vec_2", lg_n)
         blinds_vec = list(zip(v1, v2))
 
-        if n > HOST_COMMIT_MAX:
-            Cx_dev = dmsm.msm_rows(fq.from_mont(x_dev)[None], gens.gens_n)
-            Cx_pt = ded.to_host(Cx_dev)[0].add(gens.gens_n.h.mul(blind_x % Q))
+        # the secret x and blind_x committed in constant time: with the
+        # device rounds by K5 (one launch, K4, one 32-byte fetch), below
+        # them on the host ladder
+        dev = x_dev.device
+        if n // 2 >= DEVICE_MIN[dev.type]:
+            pts = torch.cat([gens.gens_n.points(dev),
+                             ded.stack(ded.from_host([gens.gens_n.h], dev))])
+            s = torch.cat([fq.from_mont(x_dev),
+                           limb.ints_to_limbs([blind_x % Q], dev)])
+            Cx = rt.fetch(compress(ded.unstack(point_msm(
+                pts, s, (0, n + 1))))).astype("<i4").tobytes()
         else:
-            Cx_pt = commit_vector_host(
-                fq.decode_to_ints(x_dev), blind_x, gens.gens_n)
-        Cx = hri.encode(Cx_pt)
+            Cx = hri.encode(commit_vector_host(
+                fq.decode_to_ints(x_dev), blind_x, gens.gens_n))
         transcript.append_point(b"Cx", Cx)
 
         Cy = hri.encode(commit_scalar(y, blind_y, gens.gens_1))
@@ -78,8 +93,8 @@ class DotProductProofLog:
         blind_Gamma = (blind_x + r * blind_y) % Q
         (bullet_proof, _Gamma_hat, x_hat, a_hat, g_hat, rhat_Gamma) = (
             BulletReductionProof.prove(
-                transcript, Q_scaled, gens.gens_n.G, gens.gens_n.h,
-                x_dev, a_dev, blind_Gamma, blinds_vec,
+                transcript, Q_scaled, gens.gens_n, x_dev, a_dev,
+                blind_Gamma, blinds_vec,
             )
         )
         y_hat = x_hat * a_hat % Q

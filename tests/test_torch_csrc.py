@@ -1,9 +1,11 @@
 """The CUDA kernels' field and point arithmetic (``csrc/fq.cuh``,
 ``csrc/fp25519.cuh``, ``csrc/carry.cuh``), the keccak-f[1600]
-permutation (``csrc/keccak.cuh``) and the ristretto255 encode
-(``csrc/ristretto.cuh``) compiled for the host with g++ and held
-against python-int oracles, ``core/keccak.py`` and
-``core/ristretto.encode``.
+permutation (``csrc/keccak.cuh``), the ristretto255 encode
+(``csrc/ristretto.cuh``), kernel K5's constant-time scalar
+multiplication (``csrc/point_msm.cuh``) and kernel K6's inverse, wide
+reduction and Montgomery exit (``csrc/bullet_step.cuh``) compiled for
+the host with g++ and held against python-int oracles,
+``core/keccak.py`` and ``core/ristretto.encode``.
 
 The headers are plain C++ apart from CUDA's qualifiers and vector types,
 which a small shim defines away, so the arithmetic that runs inside the
@@ -47,7 +49,17 @@ static inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z,
 #include "fp25519.cuh"
 #include "keccak.cuh"
 #include "ristretto.cuh"
+#include "point_msm.cuh"
+#include "bullet_step.cuh"
 extern "C" {
+void h_ge_scalar_mul_ct(uint32_t* r, const uint32_t* p, const uint32_t* s) {
+  ge_t a, c; ge_load(a, p); ge_scalar_mul_ct(c, a, s); ge_store(r, c);
+}
+void h_fq_inv(uint32_t* r, const uint32_t* x) { fq_inv(r, x); }
+void h_fq_from_mont(uint32_t* r, const uint32_t* x) { fq_from_mont(r, x); }
+void h_fq_from_bytes_wide(uint32_t* r, const uint8_t* b) {
+  fq_from_bytes_wide(r, b);
+}
 void h_keccak_f1600(uint64_t* a) { keccak_f1600(a); }
 void h_ristretto_encode(uint32_t* s, const uint32_t* p) {
   ge_t q; ge_load(q, p); ristretto_encode(s, q);
@@ -175,6 +187,33 @@ def test_point_ops(lib):
         out = (ctypes.c_uint32 * 32)()
         lib.h_ge_dbl(out, _pt_buf(p))
         assert jri.encode(_pt(out)) == jri.encode(p.double())
+
+
+def test_scalar_mul_ct(lib):
+    """K5's per-point ladder: s * P for the scalars 0, 1, 15, 16, q - 1
+    and random ones, the identity point included."""
+    rng = random.Random(17)
+    pts = [jri.from_uniform_bytes(rng.randbytes(64)) for _ in range(3)]
+    pts.append(jed.Point.identity())
+    for p in pts:
+        for k in (0, 1, 15, 16, Q - 1, rng.randrange(Q)):
+            out = (ctypes.c_uint32 * 32)()
+            lib.h_ge_scalar_mul_ct(out, _pt_buf(p), _buf(k))
+            assert jri.encode(_pt(out)) == jri.encode(p.mul(k)), k
+
+
+def test_fq_inverse_and_conversions(lib):
+    """K6's u^(q-2), a residue's canonical value and the Montgomery
+    form of 64 challenge bytes."""
+    rng = random.Random(19)
+    for x in (1, 2, Q - 1, rng.randrange(Q), rng.randrange(Q)):
+        assert _op(lib, "h_fq_inv", x * R % Q) == pow(x, -1, Q) * R % Q
+        assert _op(lib, "h_fq_from_mont", x * R % Q) == x
+    assert _op(lib, "h_fq_inv", 0) == 0
+    for b in (bytes(64), b"\xff" * 64, rng.randbytes(64)):
+        out = _buf(0)
+        lib.h_fq_from_bytes_wide(out, (ctypes.c_uint8 * 64)(*b))
+        assert _val(out) == int.from_bytes(b, "little") % Q * R % Q
 
 
 def _pre_buf(pt):

@@ -9,7 +9,11 @@ configures JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Everything is integer arithmetic: the kernel and the plain version agree
-bit for bit (tolerance zero).  Shapes are those of ``chip_smoke.py``.
+bit for bit (tolerance zero).  Shapes are those of ``chip_smoke.py``,
+and for K5 (``curve/point_msm.py``) also groups that are no power of
+two; K5 and K6 (``ff/bullet_kernel.py``) run on two streams at once too.
+The golden NIZK and SNARK run with the default bullet rounds and with
+every round on the device (``bullet.DEVICE_MIN`` set to 1).
 """
 
 import pytest
@@ -136,12 +140,17 @@ def test_fold_evals_batched_kernel_on_two_streams(dev):
         assert all(torch.equal(e, want) for e in evals)
 
 
-def test_golden_snark_on_the_card(dev):
+@pytest.mark.parametrize("rounds", ["default", "DEVICE_MIN=1"])
+def test_golden_snark_on_the_card(dev, rounds, monkeypatch):
     import os
 
     from spartan_tpu_torch import serialize as ser
     from spartan_tpu_torch.api import SNARK, Instance, SNARKGens
     from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.protocols import bullet
+
+    if rounds != "default":  # every bullet round on the device
+        monkeypatch.setitem(bullet.DEVICE_MIN, "cuda", 1)
 
     inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
         16, 16, 2, seed=424242, device=dev)
@@ -158,12 +167,17 @@ def test_golden_snark_on_the_card(dev):
     snark.verify(comm, inputs_a, Transcript(b"golden_snark"), gens)
 
 
-def test_golden_nizk_on_the_card(dev):
+@pytest.mark.parametrize("rounds", ["default", "DEVICE_MIN=1"])
+def test_golden_nizk_on_the_card(dev, rounds, monkeypatch):
     import os
 
     from spartan_tpu_torch import serialize as ser
     from spartan_tpu_torch.api import NIZK, Instance, NIZKGens
     from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.protocols import bullet
+
+    if rounds != "default":  # every bullet round on the device
+        monkeypatch.setitem(bullet.DEVICE_MIN, "cuda", 1)
 
     inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
         16, 16, 2, seed=424242, device=dev)
@@ -279,3 +293,111 @@ def test_golden_nizk_device_prover_on_the_card(dev, monkeypatch):
                           "nizk_proof.bin")
     with open(golden, "rb") as f:
         assert ser.nizk_to_bytes(nizk) == f.read()
+
+
+def _points(n, seed, device):
+    """(n, 4, 8) points s * B for random s, the identity first."""
+    from spartan_tpu_torch.core import edwards as hed
+    from spartan_tpu_torch.curve import edwards as ed
+
+    g = torch.Generator().manual_seed(seed)
+    pts = [hed.Point.identity()] + [
+        hed.BASEPOINT.mul(int(k)) for k in
+        torch.randint(1, 1 << 62, (n - 1,), generator=g).tolist()]
+    return ed.stack(ed.from_host(pts[:n], device))
+
+
+@pytest.mark.parametrize("sizes", [(3, 1, 0, 5), (7, 7, 7, 7, 7), (70, 5, 129),
+                                   (1026,), (2050, 2050), (2,) * 1024],
+                         ids=["mixed", "zk_round", "odd", "cross_2048",
+                              "cross_4096", "fold_2x1024"])
+def test_point_msm_kernel_vs_plain(dev, sizes):
+    from spartan_tpu_torch.curve import point_msm as pm
+
+    offs = [0]
+    for k in sizes:
+        offs.append(offs[-1] + k)
+    pts = _points(offs[-1], len(sizes), dev)
+    s = _elems(offs[-1], offs[-1], dev)
+    before = pm.point_msm.launches
+    got = pm.point_msm(pts, s, offs)
+    torch.cuda.synchronize()
+    assert pm.point_msm.launches == before + 1
+    assert torch.equal(got, pm.point_msm_plain(pts, s, offs))
+
+
+def test_point_msm_kernel_on_two_streams(dev):
+    """Launches in flight on two streams at once each use their own
+    scratch: every one equals the plain version."""
+    from spartan_tpu_torch.curve import point_msm as pm
+
+    offs = [0, 2, 4, 7, 64, 130]
+    sets = [(_points(130, 7 + k, dev), _elems(130, 9 + k, dev))
+            for k in range(2)]
+    streams = [torch.cuda.Stream() for _ in sets]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = [[] for _ in sets]
+    for _ in range(4):
+        for k, ((pts, s), st) in enumerate(zip(sets, streams)):
+            with torch.cuda.stream(st):
+                got[k].append(pm.point_msm(pts, s, offs))
+    torch.cuda.synchronize()
+    for (pts, s), outs in zip(sets, got):
+        want = pm.point_msm_plain(pts, s, offs)
+        assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.parametrize("mode,n", [
+    (mode, n) for mode in ("cross", "fold", "fold_bytes")
+    for n in (2, 6, 1024, 2048, 4096)] + [("head", 2), ("tail", 2)])
+def test_bullet_step_kernel_vs_plain(dev, mode, n):
+    from spartan_tpu_torch.ff.bullet_kernel import (bullet_step,
+                                                    bullet_step_plain)
+    a, b = _elems(n, n, dev), _elems(n, n + 1, dev)
+    blinds = _elems(2, 5, dev)
+    chal = torch.randint(0, 256, (64,), generator=torch.Generator()
+                         .manual_seed(n), dtype=torch.int64).to(
+                             torch.uint8).to(dev)
+    before = sum(bullet_step.launches.values())
+    if mode == "cross":
+        got = [bullet_step("cross", a, b, blinds)]
+        want = [bullet_step_plain("cross", a, b, blinds)]
+    elif mode.startswith("fold"):
+        u = chal if mode == "fold_bytes" else _elems(4, 77, dev)[3]
+        bf_k, bf_p = _elems(3, 6, dev)[2].clone(), _elems(3, 6, dev)[2].clone()
+        got = [*bullet_step("fold", a, b, u, blinds, bf_k), bf_k]
+        want = [*bullet_step_plain("fold", a, b, u, blinds, bf_p), bf_p]
+    elif mode == "head":
+        got = [bullet_step("head", chal, a[0], a[1])]
+        want = [bullet_step_plain("head", chal, a[0], a[1])]
+    else:
+        drr = _elems(3, 8, dev)
+        got = [bullet_step("tail", chal, a[0], a[1], b[0], drr)]
+        want = [bullet_step_plain("tail", chal, a[0], a[1], b[0], drr)]
+    torch.cuda.synchronize()
+    assert sum(bullet_step.launches.values()) == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_bullet_step_kernel_on_two_streams(dev):
+    """Folds in flight on two streams at once, each updating its own
+    blind_fin: each equals the plain version."""
+    from spartan_tpu_torch.ff.bullet_kernel import (bullet_step,
+                                                    bullet_step_plain)
+
+    sets = [(_elems(2048, 30 + k, dev), _elems(2048, 40 + k, dev),
+             _elems(4, 50 + k, dev)) for k in range(2)]
+    streams = [torch.cuda.Stream() for _ in sets]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for (a, b, x), st in zip(sets, streams):
+        with torch.cuda.stream(st):
+            bf = x[3].clone()
+            got.append((*bullet_step("fold", a, b, x[2], x[:2], bf), bf))
+    torch.cuda.synchronize()
+    for (a, b, x), outs in zip(sets, got):
+        bf = x[3].clone()
+        want = (*bullet_step_plain("fold", a, b, x[2], x[:2], bf), bf)
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))

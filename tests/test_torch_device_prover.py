@@ -8,12 +8,16 @@ device_prover.py``) on the CPU, through the kernels' plain versions.
 * The device product layers, with and without dot-product circuits,
   equal ``ProductCircuitEvalProofBatched.prove`` on the host.
 * The round-polynomial helpers equal ``poly.unipoly.UniPoly``.
+* A device ZK phase commits its rows (tape secrets) with kernel K5,
+  never with B1.
 * The slice as a whole, against the JAX package: with
-  ``SPARTAN_TPU_DEVICE_PROVER=1`` the port reproduces
-  ``tests/golden/nizk_proof.bin`` and ``snark_proof.bin`` (the JAX
-  package's bytes, ``tests/test_golden.py``) byte for byte and both
-  verify; so does the SNARK with ``SPARTAN_TPU_DEVICE_NONZK=1``.  No JAX
-  code runs here.
+  ``SPARTAN_TPU_DEVICE_PROVER=1`` (its dot-product-log proofs on the
+  device too) the port reproduces ``tests/golden/nizk_proof.bin`` and
+  ``snark_proof.bin`` (the JAX package's bytes, ``tests/test_golden.py``)
+  byte for byte and both verify; so does the SNARK with
+  ``SPARTAN_TPU_DEVICE_NONZK=1``, and both with every bullet round on
+  the device (``bullet.DEVICE_MIN`` of the CPU set to 1, no gate).  No
+  JAX code runs here.
 """
 
 import os
@@ -29,8 +33,10 @@ from spartan_tpu_torch.api import (NIZK, SNARK, Instance, NIZKGens,
 from spartan_tpu_torch.commitments import MultiCommitGens
 from spartan_tpu_torch.core.field import Q
 from spartan_tpu_torch.core.merlin import RandomTape, Transcript
+from spartan_tpu_torch.curve import row_msm as rm
 from spartan_tpu_torch.ff import fq, limb
 from spartan_tpu_torch.poly.unipoly import UniPoly
+from spartan_tpu_torch.protocols import bullet
 from spartan_tpu_torch.protocols import device_prover as dp
 from spartan_tpu_torch.protocols.product_tree import (
     DotProductCircuitBatch, ProductCircuitBatch,
@@ -41,6 +47,8 @@ from spartan_tpu_torch.transcript.device import DeviceTranscript
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 SHAPE = (16, 16, 2)
 GATES = ("SPARTAN_TPU_DEVICE_PROVER", "SPARTAN_TPU_DEVICE_NONZK")
+# every bullet round on the device, no gate
+DEVICE_ROUNDS = "DEVICE_MIN=1"
 
 
 def _golden(name):
@@ -79,6 +87,35 @@ def test_zk_phase_on_device_equals_host(which, no_gates):
     assert dev[0][0] == host[0][0]  # the proof
     assert dev[0][1:] == host[0][1:]  # r, final claims, last blind
     assert dev[1:] == host[1:]  # transcript state, tape
+
+
+def test_zk_phase_commits_with_k5_not_b1(no_gates):
+    def b1(*a, **k):
+        raise AssertionError("B1 launched in a device ZK phase")
+
+    no_gates.setattr(rm, "row_msm", b1)
+    no_gates.setattr(rm, "row_msm_plain", b1)
+    calls = []
+
+    def k5(points, scalars, offsets):
+        calls.append(tuple(offsets))
+        return point_msm(points, scalars, offsets)
+
+    point_msm = dp.point_msm
+    no_gates.setattr(dp, "point_msm", k5)
+    rng = random.Random(2)
+    tables = [fq.encode_ints([rng.randrange(Q) for _ in range(4)])
+              for _ in range(2)]
+    claim = sum(a * b for a, b in zip(*(fq.decode_to_ints(t)
+                                        for t in tables))) % Q
+    dp.zk_sumcheck_phase_device(
+        claim, 5, 2, tables, "quad", MultiCommitGens(1, b"g1"),
+        MultiCommitGens(3, b"gn"), Transcript(b"zk"),
+        RandomTape(b"tape", seed=3))
+    # per round: comm_poly with delta, then comm_eval (with the next
+    # round's two), then Cy with beta; groups of the 6 bases
+    assert calls == [(0, 6, 12), (0, 6, 12, 18), (0, 6, 12), (0, 6),
+                     (0, 6, 12)]
 
 
 @pytest.mark.parametrize("with_dotp", [False, True])
@@ -144,8 +181,16 @@ def golden_snark_setup(golden_inst):
     return gens, *SNARK.encode(inst, gens)
 
 
-def test_golden_nizk_with_device_prover(golden_inst, no_gates):
-    no_gates.setenv("SPARTAN_TPU_DEVICE_PROVER", "1")
+def _set_path(monkeypatch, path: str) -> None:
+    if path == DEVICE_ROUNDS:
+        monkeypatch.setitem(bullet.DEVICE_MIN, "cpu", 1)
+    else:
+        monkeypatch.setenv(path, "1")
+
+
+@pytest.mark.parametrize("path", [GATES[0], DEVICE_ROUNDS])
+def test_golden_nizk_with_device_prover(path, golden_inst, no_gates):
+    _set_path(no_gates, path)
     inst, vars_a, inputs_a = golden_inst
     gens = NIZKGens(*SHAPE)
     nizk = NIZK.prove(inst, vars_a, inputs_a, gens,
@@ -154,10 +199,10 @@ def test_golden_nizk_with_device_prover(golden_inst, no_gates):
     nizk.verify(inst, inputs_a, Transcript(b"golden_nizk"), gens)
 
 
-@pytest.mark.parametrize("gate", GATES)
+@pytest.mark.parametrize("gate", GATES + (DEVICE_ROUNDS,))
 def test_golden_snark_with_device_prover(gate, golden_inst,
                                          golden_snark_setup, no_gates):
-    no_gates.setenv(gate, "1")
+    _set_path(no_gates, gate)
     inst, vars_a, inputs_a = golden_inst
     gens, comm, decomm = golden_snark_setup
     snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,

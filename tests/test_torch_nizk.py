@@ -110,14 +110,15 @@ def test_writer_reader_roundtrip(port):
 
 def test_large_msm_paths_give_the_same_bytes(port, monkeypatch):
     """The MSM branches that the prover and verifier take only at large
-    sizes (``vmsm`` from HOST_MAX points, the dot-product-log's Cx from
-    HOST_COMMIT_MAX entries: both go through the row-MSM) forced at the
-    golden shape: the same bytes, and the proof verifies."""
+    sizes (``vmsm`` from HOST_MAX points through the row-MSM; the
+    dot-product-log's Cx through K5 and its rounds on the device from
+    2 bullet.DEVICE_MIN entries) forced at the golden shape: the same
+    bytes, and the proof verifies."""
     from spartan_tpu_torch.curve import msm as dmsm
-    from spartan_tpu_torch.protocols import dotproduct_log
+    from spartan_tpu_torch.protocols import bullet
 
     monkeypatch.setattr(dmsm, "HOST_MAX", 4)
-    monkeypatch.setattr(dotproduct_log, "HOST_COMMIT_MAX", 2)
+    monkeypatch.setitem(bullet.DEVICE_MIN, "cpu", 1)
     inst, inputs_a, gens, blob = port
     _, vars_a, _ = Instance.produce_synthetic_r1cs(*SHAPE, seed=424242,
                                                    device="cpu")
