@@ -264,8 +264,9 @@ def _w_prod_circuit_proof(w: Writer, p: ProductCircuitEvalProofBatched):
     w.u64(len(p.proof))
     for lp in p.proof:
         _w_layer_proof(w, lp)
-    for claims in p.claims_dotp:
-        w.scalars(claims)
+    dl, dr, dw = ((list(x) for x in p.claims_dotp) if p.claims_dotp
+                  else ([], [], []))
+    w.scalars(dl); w.scalars(dr); w.scalars(dw)
 
 
 def _r_prod_circuit_proof(r: Reader) -> ProductCircuitEvalProofBatched:
