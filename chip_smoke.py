@@ -41,16 +41,21 @@ same 2^20 NIZK and SNARK proved again under the gate, whose bytes must
 equal the host path's and verify, each device ZK phase, product proof
 and dot-product-log proof fetching once, and B1 launched there only as
 often as on the host path (never with the ZK rounds' tape secrets).
-The bullet rounds' kernels: K5, the grouped variable-base MSM
-(``csrc/point_msm.cu``), against its plain version bit for bit at the
-path's shapes (K5_CASES: the cross terms of the first rounds at n = 2,048 and
-4,096, Cx at 4,096, G folds of 1,024 and 2,048 pairs, a ZK round's 5
-groups of 7, and edge scalars and the identity point), each timed launched one by
-one and in a CUDA graph beside its bound; K6, the bullet round's scalar
-step (``csrc/bullet_step.cu``), in every mode at n = 1,024, 2,048 and
-4,096; then a host round and a device round timed at n = 2^4 ... 2^12
+The bullet rounds' kernels: one field product's latency from a
+one-thread chain of them; K5, the grouped variable-base MSM
+(``csrc/point_msm.cu``, a quad of lanes a point), against its plain
+version bit for bit at the path's shapes (K5_CASES: the cross terms of
+the first rounds at n = 2,048 and 4,096, Cx at 4,096, G folds of 1,024
+and 2,048 pairs, a ZK round's 5 groups of 7, and 11 points with edge
+scalars and the identity point), each timed launched one by one and in
+a CUDA graph beside its bound, its chain floor and PR 5's time; K6, the
+bullet round's scalar step (``csrc/bullet_step.cu``), in every mode at
+n = 1,024, 2,048 and 4,096, the fold also at u = 1, q - 1 and 2^200; a forced K5 launch failure
+and a forced K6 build failure, each of which must raise with no plain
+version run in its place; then a host round and a device round timed at n = 2^1 ... 2^12
 (``bullet round n ...`` lines: the walls that set
 ``protocols/bullet.py::DEVICE_MIN``), each device round fetching once;
+the default path's launches of K5 and K6 in each prove;
 and after the default path's 2^20 NIZK and SNARK (now with device
 rounds) both proved again in the same process with every round on the
 host (``host_rounds {...}``), for the same bytes.  It ends with a JSON
@@ -1200,43 +1205,92 @@ def check_fold_evals_device_r(dev, gen) -> dict:
 # 2,048 (two groups of 1,026, L and R) and n = 4,096 (two
 # of 2,050) of Spark's dot-product-log proofs, Cx at n = 4,096 (one group
 # of 4,097), G folds of 1,024 and 2,048 pairs, a ZK round's 5 groups of
-# 7.  Its bound counts its field products: a point's table (14 unified
-# adds of 9), 256 doublings (8) and 64 adds (9), and N - G adds for the
-# groups.
+# 7, and small groups of 11 points (no multiple of a quad's 4 lanes) with
+# the edge scalars.  Its bound counts its field products: a point's table
+# (7 cached additions of 8 products, 8 conversions of 4), 63 x 4
+# doublings (8) and 64 cached additions (8), and N - G unified additions
+# (9) for the groups.  Its chain floor is the longest dependent chain of
+# a launch in products times one product's latency (measured on the card
+# by a one-thread chain of fp_mul): a point's 654 product-steps (a quad
+# runs a point operation as two steps of one product a lane: 7 table
+# additions, 8 conversions of one step, 64 additions and 252 doublings),
+# then its group's additions on one lane and the halving tree, 3
+# dependent products each (the unified addition's depth).
 K5_CASES = [("cross_2048", (1026, 1026)), ("cross_4096", (2050, 2050)),
             ("cx_4096", (4097,)), ("fold_1024", (2,) * 1024),
             ("fold_2048", (2,) * 2048), ("zk_round", (7,) * 5),
-            ("edges", (3, 1, 0, 5))]
-K5_POINT_FP_MULS = 14 * 9 + 256 * 8 + 64 * 9
+            ("edges", (3, 1, 0, 5, 2))]
+K5_POINT_FP_MULS = 7 * 8 + 8 * 4 + 252 * 8 + 64 * 8
+K5_POINT_CHAIN = 7 * 2 + 8 + 64 * 2 + 252 * 2
+K5_GROUP_ADD_CHAIN = 3
+# PR 5's K5 (one thread a point) on this card type, ms a launch
+K5_PR5_MS = {"cross_2048": 1.143, "cross_4096": 1.190, "cx_4096": 1.283,
+             "fold_1024": 1.076, "fold_2048": 1.089, "zk_round": 0.969}
 K6_SIZES = [1024, 2048, 4096]
-# the inverse's chain: q - 2 has 253 bits, 64 of them set below the top
-FQ_INV_MULS = 252 + 64
-# bullet rounds compared on the host and on the device (n = 2^4 ... 2^12)
-ROUND_LOGS = range(4, 13)
+K6_PR5_FOLD_MS = 0.1404  # PR 5's fold (u^-1 by Fermat), any n
+# K6's fold inverts u by safegcd on one thread: 10 batches of 59
+# divsteps, each divstep 28 64-bit operations of two 32-bit instructions;
+# each batch's matrix update 50 signed 64 x 64 -> 128-bit multiply-adds
+# of ~16 instructions; issued one after another by one thread at one
+# instruction a clock (counted from csrc/bullet_step.cuh)
+SAFEGCD_INSTR = 590 * 28 * 2 + 10 * 50 * 16
+# bullet rounds compared on the host and on the device (n = 2^1 ... 2^12)
+ROUND_LOGS = range(1, 13)
 
 
-def point_msm_bound(sizes) -> dict:
+def point_msm_bound(sizes, product_ns: float) -> dict:
+    """The operations bound and the chain floor (one product's latency
+    ``product_ns``) of a launch at ``sizes``."""
     n, groups = sum(sizes), len(sizes)
     products = n * K5_POINT_FP_MULS + (n - groups) * 9
     t_ops = products * FP_MUL_WIDE * IMAD_PER_WIDE / IMAD_S * 1e3
     t_bytes = (n * (128 + 32) + groups * (128 + 4)) / HBM_BYTES_S * 1e3
+    most, lanes = max(sizes), 1
+    while lanes < min(most, 64):
+        lanes *= 2
+    group_adds = -(-most // lanes) - 1 + (lanes.bit_length() - 1)
+    chain = K5_POINT_CHAIN + group_adds * K5_GROUP_ADD_CHAIN
     return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="bytes" if t_bytes > t_ops else "operations")
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                chain_steps=chain, chain_floor_ms=chain * product_ns * 1e-6)
+
+
+def product_latency_ns(dev) -> float:
+    """One field product's latency mod p on the card: a one-thread chain
+    of fp_mul (csrc/point_msm.cu's fp_mul_chain_kernel) of 2^15 products
+    less one of 0, over 2^15; medians of 5."""
+    import statistics
+
+    import torch
+
+    from spartan_tpu_torch import _build
+    from spartan_tpu_torch.curve import point_msm as pm
+
+    lib = _build.load("point_msm", pm._declare)
+    xy = rand_elems(torch.Generator().manual_seed(3), 2, dev)
+    steps = 1 << 15
+
+    def run(k):
+        rc = lib.fp_mul_chain_launch(xy.data_ptr(), k,
+                                     _build.stream_handle(dev))
+        _build.check(rc, "fp_mul_chain")
+
+    per = [(cuda_ms(lambda: run(steps), 3) - cuda_ms(lambda: run(0), 3))
+           / steps * 1e6 for _ in range(5)]
+    return statistics.median(per)
 
 
 def bullet_step_bound(mode: str, n: int) -> dict:
     """Bytes: each input read once, each output written once.  Fold adds
-    the inverse's dependent chain: FQ_INV_MULS Montgomery products of
-    FQ_MUL_WIDE wide multiply-adds (two IMAD slots each), issued one
+    the safegcd inverse's chain: SAFEGCD_INSTR instructions issued one
     after another by one thread at one instruction a clock."""
     m = n // 2
     bytes_ = {"cross": 2 * n * 32 + 64 + 2 * (m + 2) * 32,
               "fold": 2 * n * 32 + 64 + 64 + n * 32 + m * 64}[mode]
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
-    t_ops = (FQ_INV_MULS * FQ_MUL_WIDE * IMAD_PER_WIDE / CLOCK_HZ * 1e3
-             if mode == "fold" else 0.0)
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="bytes" if t_bytes > t_ops else "operations")
+    t_ops = SAFEGCD_INSTR / CLOCK_HZ * 1e3 if mode == "fold" else 0.0
+    return dict(bound_ms=t_bytes + t_ops,
+                bound_by="operations" if t_ops > t_bytes else "bytes")
 
 
 def random_points(gen, n: int, dev):
@@ -1257,21 +1311,27 @@ def random_points(gen, n: int, dev):
 
 def check_point_msm(dev, gen) -> dict:
     """K5 against its plain version, bit for bit, at K5_CASES (the
-    scalars 0, 1 and q - 1 and the identity point first); each case
-    timed launched one by one and in a CUDA graph."""
+    scalars 0, 1, q - 1, 2^252 and one whose signed radix-16 digits below
+    the top are all -8, and the identity point, first); each case
+    timed launched one by one and in a CUDA graph, beside its bound, its
+    chain floor and PR 5's time."""
     import torch
 
     from spartan_tpu_torch.core.field import Q
     from spartan_tpu_torch.curve import point_msm as pm
 
-    result = {}
+    product_ns = product_latency_ns(dev)
+    log(f"fp_mul latency (one-thread chain of 2^15 products): "
+        f"{product_ns:.2f} ns a product")
+    edges = [0, 1, Q - 1, 1 << 252, (7 * 16 ** 63 + 8) // 15]
+    result = {"product_ns": product_ns}
     for name, sizes in K5_CASES:
         offs = [0]
         for k in sizes:
             offs.append(offs[-1] + k)
         n = offs[-1]
         pts = random_points(gen, n, dev)
-        s = with_edges(rand_elems(gen, n, dev), [0, 1, Q - 1])
+        s = with_edges(rand_elems(gen, n, dev), edges)
         t0 = time.perf_counter()
         want = pm.point_msm_plain(pts, s, offs)
         torch.cuda.synchronize()
@@ -1284,35 +1344,44 @@ def check_point_msm(dev, gen) -> dict:
                                  f"at {name}")
         ms = cuda_ms(lambda: pm.point_msm(pts, s, offs), 5)
         graph = graph_ms(lambda: pm.point_msm(pts, s, offs), 5)
-        bound = point_msm_bound(sizes)
+        bound = point_msm_bound(sizes, product_ns)
+        pr5 = K5_PR5_MS.get(name)
         log(f"point_msm (K5) {name} ({n} points, {len(sizes)} groups, "
             f"{pm.lanes(offs)} lanes): max_abs_err {err}; {ms:.4f} ms "
             f"launched one by one, {graph:.4f} ms in a CUDA graph, bound "
-            f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), plain "
-            f"{plain_ms:.1f} ms")
+            f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), chain floor "
+            f"{bound['chain_floor_ms']:.4f} ms ({bound['chain_steps']} "
+            f"product-steps), plain {plain_ms:.1f} ms"
+            + (f"; PR 5: {pr5} ms" if pr5 else ""))
         result[name] = dict(points=n, groups=len(sizes), ms=ms,
                             graph_ms=graph, plain_ms=plain_ms,
-                            max_abs_err=err, **bound)
+                            max_abs_err=err, pr5_ms=pr5, **bound)
     return result
 
 
 def check_bullet_step(dev, gen) -> dict:
     """K6 against its plain version in every mode (fold with u as
-    Montgomery words and as challenge bytes) at K6_SIZES; cross and fold
-    timed in a CUDA graph."""
+    Montgomery words and as challenge bytes, and at u = 1, q - 1 and
+    2^200) at
+    K6_SIZES; cross and fold timed in a CUDA graph, the fold beside PR
+    5's."""
     import torch
 
+    from spartan_tpu_torch.core.field import Q
+    from spartan_tpu_torch.ff import fq
     from spartan_tpu_torch.ff.bullet_kernel import (bullet_step,
                                                     bullet_step_plain)
 
     result = {}
     chal = torch.randint(0, 256, (64,), generator=gen,
                          dtype=torch.int64).to(torch.uint8).to(dev)
+    edge_u = fq.encode_ints([1, Q - 1, 1 << 200], dev)
     err = 0
     for n in K6_SIZES:
         a, b = rand_elems(gen, n, dev), rand_elems(gen, n, dev)
         x = rand_elems(gen, 4, dev)  # blinds, u, blind_fin
-        for mode, u in (("cross", None), ("fold", x[2]), ("fold", chal)):
+        for mode, u in (("cross", None), ("fold", x[2]), ("fold", chal),
+                        *(("fold", e) for e in edge_u)):
             if mode == "cross":
                 args = (a, b, x[:2])
                 got, want = [bullet_step(mode, *args)], [
@@ -1322,7 +1391,8 @@ def check_bullet_step(dev, gen) -> dict:
                 t0 = time.perf_counter()
                 want = [*bullet_step_plain(mode, a, b, u, x[:2], bp), bp]
                 torch.cuda.synchronize()
-                plain_ms = (time.perf_counter() - t0) * 1e3
+                if u is chal:
+                    plain_ms = (time.perf_counter() - t0) * 1e3
                 got = [*bullet_step(mode, a, b, u, x[:2], bk), bk]
             torch.cuda.synchronize()
             err = max(err, max(max_abs_err(g, w) for g, w in zip(got, want)))
@@ -1339,9 +1409,13 @@ def check_bullet_step(dev, gen) -> dict:
             log(f"bullet_step (K6) {mode} n {n}: max_abs_err 0; {ms:.4f} ms "
                 f"in a CUDA graph ({eager:.4f} ms launched one by one), "
                 f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})"
-                + (f", plain {plain_ms:.1f} ms" if mode == "fold" else ""))
+                + (f", plain {plain_ms:.1f} ms; PR 5: {K6_PR5_FOLD_MS} ms"
+                   if mode == "fold" else ""))
             result[f"{mode}_{n}"] = dict(ms=ms, eager_ms=eager, **bound)
         result[f"fold_{n}"]["plain_ms"] = plain_ms
+        result[f"fold_{n}"]["pr5_ms"] = K6_PR5_FOLD_MS
+    log(f"bullet_step (K6) fold at u = 1, q - 1, 2^200 and random u (words "
+        f"and bytes), n = {K6_SIZES}: equal to the plain version")
     # head and tail, one thread each
     v = rand_elems(gen, 8, dev)
     for mode, args in (("head", (chal, v[0], v[1])),
@@ -1359,6 +1433,50 @@ def check_bullet_step(dev, gen) -> dict:
             f"{result[f'{mode}_ms']:.4f} ms in a CUDA graph")
     result["max_abs_err"] = err
     return result
+
+
+def check_no_fallback(dev, gen) -> None:
+    """A forced launch failure (K5 given a lane count its launcher
+    refuses) and a forced build failure (K6 built into an empty directory
+    by a compiler that fails) each raise, and no plain version runs in
+    the kernel's place."""
+    import tempfile
+
+    import torch
+
+    from spartan_tpu_torch import _build
+    from spartan_tpu_torch.curve import point_msm as pm
+    from spartan_tpu_torch.ff import bullet_kernel as bk
+
+    pts, s = random_points(gen, 8, dev), rand_elems(gen, 8, dev)
+    plain = (pm.point_msm_plain.cuda_calls, bk.bullet_step_plain.cuda_calls)
+    saved_lanes = pm.lanes
+    pm.lanes = lambda offsets: 3
+    try:
+        pm.point_msm(pts, s, [0, 8])
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"forced K5 launch failure raised: {e}")
+    else:
+        raise AssertionError("a refused K5 launch did not raise")
+    finally:
+        pm.lanes = saved_lanes
+    saved = (_build.nvcc, _build.build_dir, _build._libs.pop("bullet_step"))
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.nvcc = lambda: "false"
+        _build.build_dir = lambda: tmp
+        try:
+            bk.bullet_step("head", torch.zeros(64, dtype=torch.uint8,
+                                               device=dev), s[0], s[1])
+        except RuntimeError as e:
+            log(f"forced K6 build failure raised: {str(e).splitlines()[0]}")
+        else:
+            raise AssertionError("a failed K6 build did not raise")
+        finally:
+            _build.nvcc, _build.build_dir, _build._libs["bullet_step"] = saved
+    if (pm.point_msm_plain.cuda_calls,
+            bk.bullet_step_plain.cuda_calls) != plain:
+        raise AssertionError("a plain version ran in place of a kernel")
 
 
 def bullet_round_times(dev) -> dict:
@@ -1632,6 +1750,7 @@ def main() -> int:
     fold["device_r"] = check_fold_evals_device_r(dev, gen)
     k5 = check_point_msm(dev, gen)
     k6 = check_bullet_step(dev, gen)
+    check_no_fallback(dev, gen)
     rounds = bullet_round_times(dev)
     golden(dev)
     golden_snark(dev)
@@ -1643,6 +1762,11 @@ def main() -> int:
     if (prod_chain["launches_per_prove"]
             != snark["launches"]["prove"]["fold_evals_by_comb"]["cubic_prod"]):
         raise AssertionError("the replay's launches differ from the prove's")
+    for what, counts in (("NIZK", summary["launches"]),
+                         ("SNARK", snark["launches"]["prove"])):
+        log(f"default-path launches, {what} prove: K5 {counts['point_msm']},"
+            f" K6 {counts['bullet_step']} "
+            f"{counts['bullet_step_by_mode']}")
     host_rounds = host_rounds_paths(inst, vars_a, inputs_a, nizk_ctx,
                                     snark_ctx)
     gated = device_prover_paths(dev, inst, vars_a, inputs_a, nizk_ctx,
@@ -1709,7 +1833,8 @@ def main() -> int:
              shape=list(K5_CASES[0][1]), max_abs_err=0,
              ms=k5["cross_2048"]["ms"], plain_ms=k5["cross_2048"]["plain_ms"],
              bound_ms=k5["cross_2048"]["bound_ms"],
-             bound_by=k5["cross_2048"]["bound_by"], cases=k5),
+             bound_by=k5["cross_2048"]["bound_by"],
+             chain_floor_ms=k5["cross_2048"]["chain_floor_ms"], cases=k5),
         dict(name="bullet_step", route="cuda",
              source="spartan_tpu_torch/csrc/bullet_step.cu",
              replaces="spartan_tpu/protocols/bullet.py:89, "

@@ -12,8 +12,9 @@
 //          rows, canonical: [a_L, c_L, blind_L] and [a_R, c_R, blind_R]
 //          (for the points [G_R, Q, H] and [G_L, Q, H]).
 //   fold:  u read through a pointer (8 Montgomery words, or the 64 bytes
-//          the device transcript squeezed); u^-1 by Fermat on one
-//          thread of each block while the rest wait; a' = u a_L + u^-1
+//          the device transcript squeezed); u^-1 by safegcd
+//          (bullet_step.cuh) on one thread of each block while the rest
+//          wait; a' = u a_L + u^-1
 //          a_R, b' = u^-1 b_L + u b_R; blind_fin += blind_L u^2 +
 //          blind_R u^-2 in place; K5's G-fold scalars [u^-1, u] for each
 //          pair (G_L[i], G_R[i]), canonical.
@@ -24,8 +25,9 @@
 //
 // Bound on this card: at the sizes of this slice (m <= 2,048) neither
 // bytes (~4 m x 32 B, ~80 ns) nor multiply-adds (~4 m Montgomery
-// products) but the inverse's chain of ~317 dependent products in fold,
-// and launch latency in the others.
+// products) but the inverse's dependent chain in fold (590 divsteps of a
+// few 64-bit operations and 10 matrix updates, where Fermat took 316
+// dependent Montgomery products), and launch latency in the others.
 //
 // Design: cross is one block of 256 threads: each thread takes every
 // 256th pair (four products side by side), then a shared-memory halving

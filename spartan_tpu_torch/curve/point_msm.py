@@ -10,20 +10,24 @@ variable-base device MSMs (XLA, not Pallas): ``curve/edwards.py:100``
 them.
 
 Inputs: points ``(N, 4, 8)`` int32 in extended coordinates (``edwards.
-stack``), canonical scalars ``(N, 8)`` int32, and the group offsets, a
-host sequence of G + 1 ints from 0 to N.  Output ``(G, 4, 8)`` int32,
-canonical.  Both versions run the same point operations in the same
-order, so their coordinates agree bit for bit, and both are constant
-time in the scalars (the kernel by construction, see
+stack``), canonical scalars ``(N, 8)`` int32 (below 2^253), and the group
+offsets, a host sequence of G + 1 ints from 0 to N.  Output ``(G, 4,
+8)`` int32, canonical.  Both versions run the same point formulas in the
+same order, so their coordinates agree bit for bit, and both are
+constant time in the scalars (the kernel by construction, see
 ``csrc/point_msm.cuh``):
 
-1. per point, a table ``k * P`` for k < 16 (the identity, P, then
-   unified adds of P), then 64 4-bit windows from the top: 4 doublings
-   and one unified add of the entry the digit selects, every entry read;
+1. per point, a table of the multiples 1P ... 8P in cached form lambda
+   (Y - X, Y + X, 2Z, 2dT), lambda = 121666 (P, then seven cached
+   additions of P); the scalar as 64 signed radix-16 digits in [-8, 8);
+   the identity plus the entry of the top digit, then for each lower
+   digit 4 doublings and one cached addition of its entry (the identity
+   lambda (1, 1, 2, 0) for 0, negated for a negative digit), every entry
+   read;
 2. per group, ``lanes(offsets)`` lanes: lane t sums the group's points
-   t, t + lanes, ... in order (from its first point, or the identity
-   when it has none), then lane t += lane t + half for half = lanes/2,
-   ..., 1.
+   t, t + lanes, ... in order by the unified addition (from its first
+   point, or the identity when it has none), then lane t += lane t +
+   half for half = lanes/2, ..., 1.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import functools
 import torch
 
 from .. import _build
+from ..core.field import P25519 as P
+from ..ff import fp25519 as fp
 from ..ff import limb
 from . import edwards as ed
 
@@ -64,15 +70,59 @@ def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.point_msm_launch.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.point_msm_launch.restype = ctypes.c_int
+    # one thread's chain of field products, for measuring their latency
+    lib.fp_mul_chain_launch.argtypes = [p, i, p]
+    lib.fp_mul_chain_launch.restype = ctypes.c_int
 
 
-def _select16(tab, dig):
-    """tab[dig] for a table of 16 entries (each a 4-tuple of (N, 16)) and
-    (N,) digits: every entry weighed by a 0/1 mask and summed, so each
-    is read."""
-    onehot = (dig[None, :] == torch.arange(16, device=dig.device)[:, None])
-    w = onehot.to(torch.int64)[..., None]  # (16, N, 1)
-    return tuple((w * c).sum(0) for c in tab)
+LAMBDA = 121666  # d = -121665/121666, so lambda 2d = -243330
+# the constants that make a cached entry of (Y - X, Y + X, Z, T)
+_CACHED_K = (LAMBDA, LAMBDA, 2 * LAMBDA, -2 * 121665 % P)
+# s + _RECODE has the nibbles d_w + 8 (w < 63) and d_63 on top
+_RECODE = 8 * (16 ** 63 - 1) // 15
+
+
+def _consts(values, n, dev):
+    return [limb.const16(v, dev).expand(n, limb.NLIMBS) for v in values]
+
+
+def _to_cached(p):
+    x, y, z, t = p
+    return tuple(ed._muls([fp.sub16(y, x), fp.add16(y, x), z, t],
+                          _consts(_CACHED_K, x.shape[0], x.device)))
+
+
+def _cadd(p, c):
+    """p + c for a cached c: the kernel's q_cadd."""
+    x1, y1, z1, t1 = p
+    a, b, d, cc = ed._muls([fp.sub16(y1, x1), fp.add16(y1, x1), z1, t1],
+                           list(c))
+    return ed._ehfg(fp.sub16(b, a), fp.sub16(d, cc), fp.add16(d, cc),
+                    fp.add16(b, a))
+
+
+def _select(tab, dig):
+    """The entry of each digit in [-8, 8): tab holds (9, N, 16) per
+    coordinate, the identity first; every entry is weighed by a 0/1
+    mask and summed, so each is read, then negated where the digit is
+    negative."""
+    mag = dig.abs()
+    onehot = mag[None, :] == torch.arange(9, device=dig.device)[:, None]
+    w = onehot.to(torch.int64)[..., None]  # (9, N, 1)
+    e = tuple((w * c).sum(0) for c in tab)
+    neg = (e[1], e[0], e[2], fp.sub16(torch.zeros_like(e[3]), e[3]))
+    s = (dig < 0)[:, None]
+    return tuple(torch.where(s, a, b) for a, b in zip(neg, e))
+
+
+def _digits(scalars):
+    """(N, 64) signed radix-16 digits, the kernel's recode16."""
+    t = limb.carry(limb.unpack(scalars) + limb.const16(_RECODE,
+                                                       scalars.device))
+    nib = torch.stack([(t[:, w // 4] >> (4 * (w % 4))) & 15
+                       for w in range(NWINDOWS)], dim=1)
+    nib[:, :-1] -= 8
+    return nib
 
 
 @torch.inference_mode()
@@ -88,17 +138,19 @@ def point_msm_plain(points: torch.Tensor, scalars: torch.Tensor,
     dev = points.device
     p = ed.unpack(ed.unstack(points))  # four (N, 16)
     ident = ed.unpack(ed.identity((n,), dev))
-    rows = [ident, p]
-    for _ in range(2, 16):
-        rows.append(ed.add16(rows[-1], p))
+    rows = [_to_cached(p)]
+    acc = p
+    for _ in range(7):
+        acc = _cadd(acc, rows[0])
+        rows.append(_to_cached(acc))
+    rows.insert(0, tuple(_consts((LAMBDA, LAMBDA, 2 * LAMBDA, 0), n, dev)))
     tab = tuple(torch.stack([r[c] for r in rows]) for c in range(4))
-    s16 = limb.unpack(scalars)  # (N, 16)
-    acc = ident
-    for w in range(NWINDOWS - 1, -1, -1):
+    dig = _digits(scalars)
+    acc = _cadd(ident, _select(tab, dig[:, -1]))
+    for w in range(NWINDOWS - 2, -1, -1):
         for _ in range(4):
             acc = ed.double16(acc)
-        dig = (s16[:, w // 4] >> (4 * (w % 4))) & 15
-        acc = ed.add16(acc, _select16(tab, dig))
+        acc = _cadd(acc, _select(tab, dig[:, w]))
 
     # the group sums: (G, lanes) lanes, walked as the kernel's blocks do
     G, k = len(offs) - 1, lanes(offs)

@@ -21,7 +21,8 @@ their arguments:
   with a' = u a_L + u^-1 a_R, b' = u^-1 b_L + u b_R, and gsc ``(m, 2,
   8)`` = [u^-1, u] canonical (K5's G-fold scalars for the pairs (G_L[i],
   G_R[i])); adds blind_L u^2 + blind_R u^-2 to ``blind_fin`` ``(8,)`` in
-  place.  u^-1 is u^(q-2).
+  place.  The kernel inverts u by safegcd, the plain version as u^(q-2):
+  the inverse is unique, so both give the same residue.
 * ``"head"``, ``(r, blind_x, blind_y)``: returns ``(2, 8)`` = [r
   canonical, blind_x + r blind_y].
 * ``"tail"``, ``(c, x_hat, a_hat, blind_fin, drr)`` with ``drr`` ``(3,
@@ -78,8 +79,8 @@ def _challenge16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _inv16(x: torch.Tensor) -> torch.Tensor:
-    """x^(q-2) by binary square-and-multiply from the top bit, as the
-    kernel's fq_inv."""
+    """x^(q-2) by binary square-and-multiply from the top bit (the
+    kernel's fq_inv reaches the same residue by safegcd)."""
     r = x
     for bit in _QM2_BITS[1:]:
         r = fq.mul16(r, r)

@@ -43,9 +43,10 @@ from ..utils.errors import ProofVerifyError
 
 # The smallest half size n/2 from which a device round beats a host round,
 # by device type: on the H100 from chip_smoke.py's round comparison
-# ("bullet round n = 2^4 ... 2^12", PERF.md section 6); on the CPU the
-# kernels' plain versions lose to the native host rounds at every size.
-DEVICE_MIN = {"cuda": 16, "cpu": math.inf}
+# ("bullet round n ..." at n = 2^1 ... 2^12, PERF.md section 6); on the
+# CPU the kernels' plain versions lose to the native host rounds at every
+# size.
+DEVICE_MIN = {"cuda": 8, "cpu": math.inf}
 
 
 @functools.lru_cache(maxsize=32)

@@ -2,14 +2,19 @@
 ``csrc/fp25519.cuh``, ``csrc/carry.cuh``), the keccak-f[1600]
 permutation (``csrc/keccak.cuh``), the ristretto255 encode
 (``csrc/ristretto.cuh``), kernel K5's constant-time scalar
-multiplication (``csrc/point_msm.cuh``) and kernel K6's inverse, wide
-reduction and Montgomery exit (``csrc/bullet_step.cuh``) compiled for
-the host with g++ and held against python-int oracles,
-``core/keccak.py`` and ``core/ristretto.encode``.
+multiplication by a quad of lanes (``csrc/point_msm.cuh``: the 4-way
+doubling and cached addition, the signed radix-16 recoding, the whole
+ladder, and the plain version against it bit for bit) and kernel K6's
+safegcd inverse, wide reduction and Montgomery exit
+(``csrc/bullet_step.cuh``) compiled for the host with g++ and held
+against python-int oracles, ``core/keccak.py`` and
+``core/ristretto.encode``.
 
 The headers are plain C++ apart from CUDA's qualifiers and vector types,
 which a small shim defines away, so the arithmetic that runs inside the
-kernels is checked here without a card.  Off the device, ``carry.cuh``
+kernels is checked here without a card (K5's quad runs its four lanes
+in a loop there, a shuffle reading every lane before writing any).  Off
+the device, ``carry.cuh``
 gives its carry-chain primitives in C++ with the carry flag in a
 variable, so the chains' word and carry bookkeeping is what is checked
 here (the PTX instructions themselves only on the card, kernel against
@@ -52,10 +57,34 @@ static inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z,
 #include "point_msm.cuh"
 #include "bullet_step.cuh"
 extern "C" {
-void h_ge_scalar_mul_ct(uint32_t* r, const uint32_t* p, const uint32_t* s) {
-  ge_t a, c; ge_load(a, p); ge_scalar_mul_ct(c, a, s); ge_store(r, c);
+static void q_load(qfe& q, const uint32_t* p) {
+  for (int k = 0; k < 4; k++) for (int i = 0; i < 8; i++) q.w[k][i] = p[8 * k + i];
+}
+static void q_store(uint32_t* p, const qfe& q) {
+  for (int k = 0; k < 4; k++) for (int i = 0; i < 8; i++) p[8 * k + i] = q.w[k][i];
+}
+void h_q_scalar_mul(uint32_t* r, const uint32_t* p, const uint32_t* s) {
+  qfe a, c; q_load(a, p); q_scalar_mul(c, a, s); q_store(r, c);
+}
+void h_q_dbl(uint32_t* r, const uint32_t* p) {
+  qfe a, c; q_load(a, p); q_dbl(c, a); q_store(r, c);
+}
+void h_q_cadd(uint32_t* r, const uint32_t* p, const uint32_t* q, int neg) {
+  qfe a, b, c, tab[8], e;
+  q_load(a, p); q_load(b, q); q_to_cached(c, b);
+  for (int t = 0; t < 8; t++) tab[t] = c;  // the entry of +-1
+  q_select(e, tab, neg ? -1 : 1);
+  q_cadd(c, a, e); q_store(r, c);
+}
+void h_recode16(int8_t* dg, const uint32_t* s) {
+  uint32_t t[8]; recode16(t, s);
+  for (int w = 0; w < 64; w++) {
+    int v = (t[w >> 3] >> (4 * (w & 7))) & 15;
+    dg[w] = (int8_t)(w < 63 ? v - 8 : v);
+  }
 }
 void h_fq_inv(uint32_t* r, const uint32_t* x) { fq_inv(r, x); }
+void h_fq_modinv(uint32_t* r, const uint32_t* x) { fq_modinv(r, x); }
 void h_fq_from_mont(uint32_t* r, const uint32_t* x) { fq_from_mont(r, x); }
 void h_fq_from_bytes_wide(uint32_t* r, const uint8_t* b) {
   fq_from_bytes_wide(r, b);
@@ -189,22 +218,96 @@ def test_point_ops(lib):
         assert jri.encode(_pt(out)) == jri.encode(p.double())
 
 
+M8 = (7 * 16 ** 63 + 8) // 15  # its digits 0 ... 62 are all -8
+
+
 def test_scalar_mul_ct(lib):
-    """K5's per-point ladder: s * P for the scalars 0, 1, 15, 16, q - 1
-    and random ones, the identity point included."""
+    """K5's per-point ladder on a quad: s * P for the scalars 0, 1, 15,
+    16, q - 1, 2^252, one whose digits are all -8 and random ones, the
+    identity point included."""
     rng = random.Random(17)
     pts = [jri.from_uniform_bytes(rng.randbytes(64)) for _ in range(3)]
     pts.append(jed.Point.identity())
     for p in pts:
-        for k in (0, 1, 15, 16, Q - 1, rng.randrange(Q)):
+        for k in (0, 1, 15, 16, Q - 1, 1 << 252, M8, rng.randrange(Q)):
             out = (ctypes.c_uint32 * 32)()
-            lib.h_ge_scalar_mul_ct(out, _pt_buf(p), _buf(k))
+            lib.h_q_scalar_mul(out, _pt_buf(p), _buf(k))
             assert jri.encode(_pt(out)) == jri.encode(p.mul(k)), k
 
 
+@pytest.mark.parametrize("op", ["dbl", "cadd", "cadd_neg"])
+def test_quad_point_ops(lib, op):
+    """The 4-way doubling and the 4-way addition of a cached entry (and
+    of its negation, as a negative digit selects it), the quad's four
+    lanes simulated by a loop: against the host's point arithmetic, and
+    each result a point of the extended form (X Y = Z T)."""
+    pts = _pts(18, 5) + [jed.Point.identity()]
+    for p in pts:
+        for q in (pts if op != "dbl" else [None]):
+            out = (ctypes.c_uint32 * 32)()
+            if op == "dbl":
+                lib.h_q_dbl(out, _pt_buf(p))
+                want = p.double()
+            else:
+                lib.h_q_cadd(out, _pt_buf(p), _pt_buf(q), op == "cadd_neg")
+                want = p.add(q.neg() if op == "cadd_neg" else q)
+            got = _pt(out)
+            assert jri.encode(got) == jri.encode(want)
+            assert got.X * got.Y % P == got.Z * got.T % P
+
+
+def test_signed_radix16_recoding(lib):
+    """The branch-free recoding: 64 digits in [-8, 8) that recompose the
+    scalar, for 0, 1, q - 1, 2^252, the all -8 scalar and random ones."""
+    rng = random.Random(20)
+    for s in [0, 1, Q - 1, 1 << 252, M8, 8, 0x88] + [
+            rng.randrange(Q) for _ in range(50)]:
+        dg = (ctypes.c_int8 * 64)()
+        lib.h_recode16(dg, _buf(s))
+        d = list(dg)
+        assert all(-8 <= x < 8 for x in d), s
+        assert sum(x << (4 * w) for w, x in enumerate(d)) == s
+    lib.h_recode16(dg, _buf(M8))
+    assert list(dg)[:63] == [-8] * 63
+
+
+def test_plain_point_msm_equals_host_kernel(lib):
+    """K5's plain version (``curve/point_msm.py``), one point a group,
+    against the quad ladder compiled for the host: the same canonical
+    coordinates, word for word."""
+    from spartan_tpu_torch.curve import edwards as ted
+    from spartan_tpu_torch.curve import point_msm as pm
+    from spartan_tpu_torch.ff import limb
+
+    rng = random.Random(21)
+    pts = _pts(22, 5) + [jed.Point.identity()]
+    ks = [0, Q - 1, M8, 1 << 252, rng.randrange(Q), rng.randrange(Q)]
+    got = pm.point_msm(ted.stack(ted.from_host(pts)), limb.ints_to_limbs(ks),
+                       range(len(pts) + 1))
+    cols = [limb.limbs_to_ints(got[:, c]) for c in range(4)]
+    for g, (p, k) in enumerate(zip(pts, ks)):
+        out = (ctypes.c_uint32 * 32)()
+        lib.h_q_scalar_mul(out, _pt_buf(p), _buf(k))
+        v = _val(out)
+        assert [(v >> (256 * c)) % R % P for c in range(4)] == [
+            col[g] for col in cols], g
+
+
+def test_fq_safegcd_inverse(lib):
+    """K6's safegcd inverse: x * x^-1 = 1 mod q for 1, q - 1, every power
+    of two below q and random x (and 0 for 0), against pow(x, -1, q)."""
+    rng = random.Random(23)
+    for x in [1, Q - 1, Q - 2] + [1 << k for k in range(253)] + [
+            rng.randrange(1, Q) for _ in range(200)]:
+        inv = _op(lib, "h_fq_modinv", x)
+        assert inv == pow(x, -1, Q) and x * inv % Q == 1, x
+    assert _op(lib, "h_fq_modinv", 0) == 0
+
+
 def test_fq_inverse_and_conversions(lib):
-    """K6's u^(q-2), a residue's canonical value and the Montgomery
-    form of 64 challenge bytes."""
+    """K6's inverse of a Montgomery residue (safegcd, then one product by
+    R^3), a residue's canonical value and the Montgomery form of 64
+    challenge bytes."""
     rng = random.Random(19)
     for x in (1, 2, Q - 1, rng.randrange(Q), rng.randrange(Q)):
         assert _op(lib, "h_fq_inv", x * R % Q) == pow(x, -1, Q) * R % Q

@@ -308,9 +308,11 @@ def _points(n, seed, device):
 
 
 @pytest.mark.parametrize("sizes", [(3, 1, 0, 5), (7, 7, 7, 7, 7), (70, 5, 129),
-                                   (1026,), (2050, 2050), (2,) * 1024],
+                                   (1026,), (2050, 2050), (2,) * 1024,
+                                   (5, 6), (1,), (300,)],
                          ids=["mixed", "zk_round", "odd", "cross_2048",
-                              "cross_4096", "fold_2x1024"])
+                              "cross_4096", "fold_2x1024", "n_not_mult_4",
+                              "one_point", "group_of_many_quads"])
 def test_point_msm_kernel_vs_plain(dev, sizes):
     from spartan_tpu_torch.curve import point_msm as pm
 
@@ -324,6 +326,34 @@ def test_point_msm_kernel_vs_plain(dev, sizes):
     torch.cuda.synchronize()
     assert pm.point_msm.launches == before + 1
     assert torch.equal(got, pm.point_msm_plain(pts, s, offs))
+
+
+def test_point_msm_kernel_edge_scalars(dev):
+    """Scalars whose signed radix-16 digits below the top are all -8, all
+    +7 or mixed at the extremes, 0, 1, q - 1 and 2^252, on random points
+    and the identity, one group each and one group of all: equal to the
+    plain version and to the host's s * P."""
+    from spartan_tpu_torch.core import edwards as hed
+    from spartan_tpu_torch.core.field import P25519 as P
+    from spartan_tpu_torch.curve import edwards as ed
+    from spartan_tpu_torch.curve import point_msm as pm
+
+    m8 = (7 * 16 ** 63 + 8) // 15  # digits 0 ... 62 all -8, 63 is 1
+    p7 = 7 * (16 ** 63 - 1) // 15  # digits 0 ... 62 all 7
+    ks = [m8, p7, 0, 1, Q - 1, 1 << 252, m8 + 15 * 16 ** 30, 8]
+    pts = _points(len(ks), 11, dev)
+    s = limb.ints_to_limbs(ks, dev)
+    for offs in (list(range(len(ks) + 1)), [0, len(ks)]):
+        got = pm.point_msm(pts, s, offs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pm.point_msm_plain(pts, s, offs))
+    cols = [limb.limbs_to_ints(got[:, c]) for c in range(4)]
+    want = hed.Point.identity()
+    for pt, k in zip(ed.to_host(ed.unstack(pts)), ks):
+        want = want.add(pt.mul(k))
+    X, Y, Z = cols[0][0], cols[1][0], cols[2][0]
+    assert (X * want.Z - want.X * Z) % P == 0
+    assert (Y * want.Z - want.Y * Z) % P == 0
 
 
 def test_point_msm_kernel_on_two_streams(dev):
@@ -378,6 +408,31 @@ def test_bullet_step_kernel_vs_plain(dev, mode, n):
     torch.cuda.synchronize()
     assert sum(bullet_step.launches.values()) == before + 1
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("form", ["words", "bytes"])
+@pytest.mark.parametrize("u", [1, Q - 1, 1 << 200], ids=["one", "q_minus_1",
+                                                         "pow2"])
+def test_bullet_step_fold_edge_u(dev, u, form):
+    """The fold's safegcd inverse at u = 1, q - 1 and a power of two,
+    read as 8 Montgomery words and as 64 squeezed bytes (whose value mod
+    q is u): equal to the plain version."""
+    from spartan_tpu_torch.ff import fq
+    from spartan_tpu_torch.ff.bullet_kernel import (bullet_step,
+                                                    bullet_step_plain)
+
+    a, b = _elems(2048, 60, dev), _elems(2048, 61, dev)
+    x = _elems(4, 62, dev)
+    if form == "words":
+        uu = fq.encode_ints([u], dev)[0]
+    else:
+        uu = torch.tensor(list(u.to_bytes(64, "little")), dtype=torch.uint8,
+                          device=dev)
+    bk, bp = x[3].clone(), x[3].clone()
+    got = [*bullet_step("fold", a, b, uu, x[:2], bk), bk]
+    want = [*bullet_step_plain("fold", a, b, uu, x[:2], bp), bp]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_bullet_step_kernel_on_two_streams(dev):

@@ -94,3 +94,16 @@ def test_lanes_and_argument_checks():
         pm.point_msm(pts, s, [0, 2, 1, 2])
     with pytest.raises(ValueError):
         pm.point_msm(pts, s.to(torch.int64), [0, 2])
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    """A kernel whose build fails raises when it is loaded: nothing falls
+    back to the plain version (here the compiler is one that fails)."""
+    from spartan_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build_dir", lambda: str(tmp_path))
+    monkeypatch.setattr(_build, "nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="nvcc failed for point_msm"):
+        _build.load("point_msm", pm._declare)
+    assert list(tmp_path.iterdir()) == []
