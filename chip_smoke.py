@@ -1238,17 +1238,14 @@ SAFEGCD_INSTR = 590 * 28 * 2 + 10 * 50 * 16
 ROUND_LOGS = range(1, 13)
 
 
-def point_msm_bound(sizes, product_ns: float) -> dict:
+def point_msm_bound(sizes, lanes: int, product_ns: float) -> dict:
     """The operations bound and the chain floor (one product's latency
-    ``product_ns``) of a launch at ``sizes``."""
+    ``product_ns``) of a launch at ``sizes`` summed in ``lanes`` lanes."""
     n, groups = sum(sizes), len(sizes)
     products = n * K5_POINT_FP_MULS + (n - groups) * 9
     t_ops = products * FP_MUL_WIDE * IMAD_PER_WIDE / IMAD_S * 1e3
     t_bytes = (n * (128 + 32) + groups * (128 + 4)) / HBM_BYTES_S * 1e3
-    most, lanes = max(sizes), 1
-    while lanes < min(most, 64):
-        lanes *= 2
-    group_adds = -(-most // lanes) - 1 + (lanes.bit_length() - 1)
+    group_adds = -(-max(sizes) // lanes) - 1 + (lanes.bit_length() - 1)
     chain = K5_POINT_CHAIN + group_adds * K5_GROUP_ADD_CHAIN
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="bytes" if t_bytes > t_ops else "operations",
@@ -1344,7 +1341,7 @@ def check_point_msm(dev, gen) -> dict:
                                  f"at {name}")
         ms = cuda_ms(lambda: pm.point_msm(pts, s, offs), 5)
         graph = graph_ms(lambda: pm.point_msm(pts, s, offs), 5)
-        bound = point_msm_bound(sizes, product_ns)
+        bound = point_msm_bound(sizes, pm.lanes(offs), product_ns)
         pr5 = K5_PR5_MS.get(name)
         log(f"point_msm (K5) {name} ({n} points, {len(sizes)} groups, "
             f"{pm.lanes(offs)} lanes): max_abs_err {err}; {ms:.4f} ms "
