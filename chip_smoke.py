@@ -48,7 +48,8 @@ version bit for bit at the path's shapes (K5_CASES: the cross terms of
 the first rounds at n = 2,048 and 4,096, Cx at 4,096, G folds of 1,024
 and 2,048 pairs, a ZK round's 5 groups of 7, and 11 points with edge
 scalars and the identity point), each timed launched one by one and in
-a CUDA graph beside its bound, its chain floor and PR 5's time; K6, the
+a CUDA graph beside its bound, its chain floor and the time of its
+earlier one-thread-a-point design; K6, the
 bullet round's scalar step (``csrc/bullet_step.cu``), in every mode at
 n = 1,024, 2,048 and 4,096, the fold also at u = 1, q - 1 and 2^200; a forced K5 launch failure
 and a forced K6 build failure, each of which must raise with no plain
@@ -1223,11 +1224,13 @@ K5_CASES = [("cross_2048", (1026, 1026)), ("cross_4096", (2050, 2050)),
 K5_POINT_FP_MULS = 7 * 8 + 8 * 4 + 252 * 8 + 64 * 8
 K5_POINT_CHAIN = 7 * 2 + 8 + 64 * 2 + 252 * 2
 K5_GROUP_ADD_CHAIN = 3
-# PR 5's K5 (one thread a point) on this card type, ms a launch
-K5_PR5_MS = {"cross_2048": 1.143, "cross_4096": 1.190, "cx_4096": 1.283,
+# K5's earlier design (one thread a point, commit df4a02a) on this card
+# type, ms a launch, as that commit's chip_smoke.py measured it
+K5_ONE_THREAD_MS = {"cross_2048": 1.143, "cross_4096": 1.190, "cx_4096": 1.283,
              "fold_1024": 1.076, "fold_2048": 1.089, "zk_round": 0.969}
 K6_SIZES = [1024, 2048, 4096]
-K6_PR5_FOLD_MS = 0.1404  # PR 5's fold (u^-1 by Fermat), any n
+# K6's fold with u^-1 by Fermat (commit df4a02a), any n, ms
+K6_FERMAT_FOLD_MS = 0.1404
 # K6's fold inverts u by safegcd on one thread: 10 batches of 59
 # divsteps, each divstep 28 64-bit operations of two 32-bit instructions;
 # each batch's matrix update 50 signed 64 x 64 -> 128-bit multiply-adds
@@ -1311,7 +1314,7 @@ def check_point_msm(dev, gen) -> dict:
     scalars 0, 1, q - 1, 2^252 and one whose signed radix-16 digits below
     the top are all -8, and the identity point, first); each case
     timed launched one by one and in a CUDA graph, beside its bound, its
-    chain floor and PR 5's time."""
+    chain floor and the one-thread design's time."""
     import torch
 
     from spartan_tpu_torch.core.field import Q
@@ -1342,26 +1345,25 @@ def check_point_msm(dev, gen) -> dict:
         ms = cuda_ms(lambda: pm.point_msm(pts, s, offs), 5)
         graph = graph_ms(lambda: pm.point_msm(pts, s, offs), 5)
         bound = point_msm_bound(sizes, pm.lanes(offs), product_ns)
-        pr5 = K5_PR5_MS.get(name)
+        earlier = K5_ONE_THREAD_MS.get(name)
         log(f"point_msm (K5) {name} ({n} points, {len(sizes)} groups, "
             f"{pm.lanes(offs)} lanes): max_abs_err {err}; {ms:.4f} ms "
             f"launched one by one, {graph:.4f} ms in a CUDA graph, bound "
             f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), chain floor "
             f"{bound['chain_floor_ms']:.4f} ms ({bound['chain_steps']} "
             f"product-steps), plain {plain_ms:.1f} ms"
-            + (f"; PR 5: {pr5} ms" if pr5 else ""))
+            + (f"; one thread a point: {earlier} ms" if earlier else ""))
         result[name] = dict(points=n, groups=len(sizes), ms=ms,
                             graph_ms=graph, plain_ms=plain_ms,
-                            max_abs_err=err, pr5_ms=pr5, **bound)
+                            max_abs_err=err, one_thread_ms=earlier, **bound)
     return result
 
 
 def check_bullet_step(dev, gen) -> dict:
     """K6 against its plain version in every mode (fold with u as
     Montgomery words and as challenge bytes, and at u = 1, q - 1 and
-    2^200) at
-    K6_SIZES; cross and fold timed in a CUDA graph, the fold beside PR
-    5's."""
+    2^200) at K6_SIZES; cross and fold timed in a CUDA graph, the fold
+    beside the Fermat fold's time."""
     import torch
 
     from spartan_tpu_torch.core.field import Q
@@ -1406,11 +1408,11 @@ def check_bullet_step(dev, gen) -> dict:
             log(f"bullet_step (K6) {mode} n {n}: max_abs_err 0; {ms:.4f} ms "
                 f"in a CUDA graph ({eager:.4f} ms launched one by one), "
                 f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})"
-                + (f", plain {plain_ms:.1f} ms; PR 5: {K6_PR5_FOLD_MS} ms"
+                + (f", plain {plain_ms:.1f} ms; Fermat: {K6_FERMAT_FOLD_MS} ms"
                    if mode == "fold" else ""))
             result[f"{mode}_{n}"] = dict(ms=ms, eager_ms=eager, **bound)
         result[f"fold_{n}"]["plain_ms"] = plain_ms
-        result[f"fold_{n}"]["pr5_ms"] = K6_PR5_FOLD_MS
+        result[f"fold_{n}"]["fermat_ms"] = K6_FERMAT_FOLD_MS
     log(f"bullet_step (K6) fold at u = 1, q - 1, 2^200 and random u (words "
         f"and bytes), n = {K6_SIZES}: equal to the plain version")
     # head and tail, one thread each
