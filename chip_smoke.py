@@ -1224,19 +1224,23 @@ K5_CASES = [("cross_2048", (1026, 1026)), ("cross_4096", (2050, 2050)),
 K5_POINT_FP_MULS = 7 * 8 + 8 * 4 + 252 * 8 + 64 * 8
 K5_POINT_CHAIN = 7 * 2 + 8 + 64 * 2 + 252 * 2
 K5_GROUP_ADD_CHAIN = 3
-# K5's earlier design (one thread a point, commit df4a02a) on this card
-# type, ms a launch, as that commit's chip_smoke.py measured it
-K5_ONE_THREAD_MS = {"cross_2048": 1.143, "cross_4096": 1.190, "cx_4096": 1.283,
-             "fold_1024": 1.076, "fold_2048": 1.089, "zk_round": 0.969}
+# The earlier design's times a launch (one thread a point for K5, u^-1 by
+# Fermat for K6's fold, at any n): commit df4a02a's chip_smoke.py on an
+# "NVIDIA H100 80GB HBM3, 700.00 W".  Printed in the log lines beside this
+# run's times, for comparison; never in the kernels line, which holds
+# only this run's measurements.
+K5_EARLIER_MS = {"cross_2048": 1.143, "cross_4096": 1.190, "cx_4096": 1.283,
+                 "fold_1024": 1.076, "fold_2048": 1.089, "zk_round": 0.969}
+K6_EARLIER_FOLD_MS = 0.1404
 K6_SIZES = [1024, 2048, 4096]
-# K6's fold with u^-1 by Fermat (commit df4a02a), any n, ms
-K6_FERMAT_FOLD_MS = 0.1404
-# K6's fold inverts u by safegcd on one thread: 10 batches of 59
-# divsteps, each divstep 28 64-bit operations of two 32-bit instructions;
-# each batch's matrix update 50 signed 64 x 64 -> 128-bit multiply-adds
-# of ~16 instructions; issued one after another by one thread at one
-# instruction a clock (counted from csrc/bullet_step.cuh)
-SAFEGCD_INSTR = 590 * 28 * 2 + 10 * 50 * 16
+# A constant-time safegcd inverse of an input below 2^256 runs 590
+# divsteps, each on the low word of the last one's f and g: the least
+# dependent chain an inverse by safegcd needs, whatever its limbs.  The
+# fold's bound counts them at the latency of the shortest divstep this
+# card runs, measured by a one-thread chain (divstep_latency_ns); the
+# matrix updates between batches, which more threads could share, are
+# left out.
+SAFEGCD_DIVSTEPS = 590
 # bullet rounds compared on the host and on the device (n = 2^1 ... 2^12)
 ROUND_LOGS = range(1, 13)
 
@@ -1280,16 +1284,45 @@ def product_latency_ns(dev) -> float:
     return statistics.median(per)
 
 
-def bullet_step_bound(mode: str, n: int) -> dict:
-    """Bytes: each input read once, each output written once.  Fold adds
-    the safegcd inverse's chain: SAFEGCD_INSTR instructions issued one
-    after another by one thread at one instruction a clock."""
+def divstep_latency_ns(dev, wide: int) -> float:
+    """One divstep's latency on the card: a one-thread chain of divstep
+    batches (csrc/bullet_step.cu's divstep_chain_kernel: 30 divsteps a
+    batch on 32-bit words for wide = 0, the fold's 59 on 64-bit words for
+    wide = 1) of about 2^15 divsteps, less one of none, over its
+    divsteps; medians of 5."""
+    import statistics
+
+    import torch
+
+    from spartan_tpu_torch import _build
+    from spartan_tpu_torch.ff import bullet_kernel as bk
+
+    lib = _build.load("bullet_step", bk._declare)
+    fgz = torch.tensor([0x1812631a5cf5d3ed, 0x0123456789abcdef, -1],
+                       dtype=torch.int64, device=dev)
+    per_batch = 59 if wide else 30
+    batches = (1 << 15) // per_batch
+
+    def run(k):
+        rc = lib.divstep_chain_launch(fgz.data_ptr(), k, wide,
+                                      _build.stream_handle(dev))
+        _build.check(rc, "divstep_chain")
+
+    per = [(cuda_ms(lambda: run(batches), 3) - cuda_ms(lambda: run(0), 3))
+           / (batches * per_batch) * 1e6 for _ in range(5)]
+    return statistics.median(per)
+
+
+def bullet_step_bound(mode: str, n: int, divstep_ns: float) -> dict:
+    """The larger of bytes (each input read once, each output written
+    once) and, for fold, the inverse's chain: SAFEGCD_DIVSTEPS divsteps
+    one after another at ``divstep_ns`` each."""
     m = n // 2
     bytes_ = {"cross": 2 * n * 32 + 64 + 2 * (m + 2) * 32,
               "fold": 2 * n * 32 + 64 + 64 + n * 32 + m * 64}[mode]
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
-    t_ops = SAFEGCD_INSTR / CLOCK_HZ * 1e3 if mode == "fold" else 0.0
-    return dict(bound_ms=t_bytes + t_ops,
+    t_ops = SAFEGCD_DIVSTEPS * divstep_ns * 1e-6 if mode == "fold" else 0.0
+    return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="operations" if t_ops > t_bytes else "bytes")
 
 
@@ -1345,7 +1378,7 @@ def check_point_msm(dev, gen) -> dict:
         ms = cuda_ms(lambda: pm.point_msm(pts, s, offs), 5)
         graph = graph_ms(lambda: pm.point_msm(pts, s, offs), 5)
         bound = point_msm_bound(sizes, pm.lanes(offs), product_ns)
-        earlier = K5_ONE_THREAD_MS.get(name)
+        earlier = K5_EARLIER_MS.get(name)
         log(f"point_msm (K5) {name} ({n} points, {len(sizes)} groups, "
             f"{pm.lanes(offs)} lanes): max_abs_err {err}; {ms:.4f} ms "
             f"launched one by one, {graph:.4f} ms in a CUDA graph, bound "
@@ -1355,15 +1388,16 @@ def check_point_msm(dev, gen) -> dict:
             + (f"; one thread a point: {earlier} ms" if earlier else ""))
         result[name] = dict(points=n, groups=len(sizes), ms=ms,
                             graph_ms=graph, plain_ms=plain_ms,
-                            max_abs_err=err, one_thread_ms=earlier, **bound)
+                            max_abs_err=err, **bound)
     return result
 
 
 def check_bullet_step(dev, gen) -> dict:
     """K6 against its plain version in every mode (fold with u as
     Montgomery words and as challenge bytes, and at u = 1, q - 1 and
-    2^200) at K6_SIZES; cross and fold timed in a CUDA graph, the fold
-    beside the Fermat fold's time."""
+    2^200) at K6_SIZES; cross and fold timed in a CUDA graph, beside their
+    bounds (the fold's from one divstep's latency, measured here) and the
+    fold beside the Fermat fold's time."""
     import torch
 
     from spartan_tpu_torch.core.field import Q
@@ -1371,7 +1405,15 @@ def check_bullet_step(dev, gen) -> dict:
     from spartan_tpu_torch.ff.bullet_kernel import (bullet_step,
                                                     bullet_step_plain)
 
-    result = {}
+    divstep_ns = {w: divstep_latency_ns(dev, wide)
+                  for w, wide in (("32", 0), ("64", 1))}
+    log(f"divstep latency (one-thread chains of ~2^15 divsteps): "
+        f"{divstep_ns['32']:.3f} ns on 32-bit words, {divstep_ns['64']:.3f} "
+        f"ns on the fold's 64-bit words; the fold's bound counts "
+        f"{SAFEGCD_DIVSTEPS} of the shorter")
+    floor_ns = min(divstep_ns.values())
+    result = {"divstep_ns_32": divstep_ns["32"],
+              "divstep_ns_64": divstep_ns["64"]}
     chal = torch.randint(0, 256, (64,), generator=gen,
                          dtype=torch.int64).to(torch.uint8).to(dev)
     edge_u = fq.encode_ints([1, Q - 1, 1 << 200], dev)
@@ -1404,15 +1446,14 @@ def check_bullet_step(dev, gen) -> dict:
                                                       x[:2], bf))):
             ms = graph_ms(lambda: [fn() for _ in range(10)], 5) / 10
             eager = cuda_ms(fn, 20)
-            bound = bullet_step_bound(mode, n)
+            bound = bullet_step_bound(mode, n, floor_ns)
             log(f"bullet_step (K6) {mode} n {n}: max_abs_err 0; {ms:.4f} ms "
                 f"in a CUDA graph ({eager:.4f} ms launched one by one), "
                 f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})"
-                + (f", plain {plain_ms:.1f} ms; Fermat: {K6_FERMAT_FOLD_MS} ms"
-                   if mode == "fold" else ""))
+                + (f", plain {plain_ms:.1f} ms; the Fermat fold: "
+                   f"{K6_EARLIER_FOLD_MS} ms" if mode == "fold" else ""))
             result[f"{mode}_{n}"] = dict(ms=ms, eager_ms=eager, **bound)
         result[f"fold_{n}"]["plain_ms"] = plain_ms
-        result[f"fold_{n}"]["fermat_ms"] = K6_FERMAT_FOLD_MS
     log(f"bullet_step (K6) fold at u = 1, q - 1, 2^200 and random u (words "
         f"and bytes), n = {K6_SIZES}: equal to the plain version")
     # head and tail, one thread each

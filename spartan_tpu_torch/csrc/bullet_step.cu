@@ -25,9 +25,9 @@
 //
 // Bound on this card: at the sizes of this slice (m <= 2,048) neither
 // bytes (~4 m x 32 B, ~80 ns) nor multiply-adds (~4 m Montgomery
-// products) but the inverse's dependent chain in fold (590 divsteps of a
-// few 64-bit operations and 10 matrix updates, where Fermat took 316
-// dependent Montgomery products), and launch latency in the others.
+// products) but the inverse's dependent chain in fold (590 divsteps, one
+// after another, and 10 matrix updates), and launch latency in the
+// others.
 //
 // Design: cross is one block of 256 threads: each thread takes every
 // 256th pair (four products side by side), then a shared-memory halving
@@ -190,6 +190,42 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
+// one thread's chain of `batches` divstep batches on the low words of f
+// and g, each batch starting from the last one's zeta and from f, g mixed
+// with its matrix: 30 divsteps on 32-bit words (wide = 0, divsteps_30) or
+// the fold's own 59 on 64-bit words (wide = 1, divsteps_59).
+// chip_smoke.py times it to measure one divstep's latency, the unit of
+// the fold's bound.  fgz: (3,) int64 = f (odd), g, zeta, updated
+__global__ void divstep_chain_kernel(int64_t* fgz, int batches, int wide) {
+  uint64_t f = (uint64_t)fgz[0], g = (uint64_t)fgz[1];
+  int64_t zeta = fgz[2];
+  if (wide) {
+#pragma unroll 1
+    for (int i = 0; i < batches; i++) {
+      trans2x2_t t;
+      zeta = divsteps_59(zeta, f, g, t);
+      f = (f ^ (uint64_t)(t.u ^ t.v)) | 1;
+      g ^= (uint64_t)(t.q ^ t.r);
+    }
+  } else {
+    uint32_t f32 = (uint32_t)f, g32 = (uint32_t)g;
+    int32_t z32 = (int32_t)zeta;
+#pragma unroll 1
+    for (int i = 0; i < batches; i++) {
+      trans2x2_32_t t;
+      z32 = divsteps_30(z32, f32, g32, t);
+      f32 = (f32 ^ (uint32_t)(t.u ^ t.v)) | 1;
+      g32 ^= (uint32_t)(t.q ^ t.r);
+    }
+    f = f32;
+    g = g32;
+    zeta = z32;
+  }
+  fgz[0] = (int64_t)f;
+  fgz[1] = (int64_t)g;
+  fgz[2] = zeta;
+}
+
 // r: 64 challenge bytes; bx, by: (8,); out: (2, 8) = [r canonical,
 // blind_Gamma]
 __global__ void bullet_head_kernel(const uint8_t* __restrict__ r_bytes,
@@ -273,5 +309,13 @@ extern "C" int bullet_tail_launch(const void* c, const void* x_hat,
   bullet_tail_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)c, (const uint32_t*)x_hat, (const uint32_t*)a_hat,
       (const uint32_t*)bf, (const uint32_t*)drr, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int divstep_chain_launch(void* fgz, int batches, int wide,
+                                    void* stream) {
+  if (batches < 0) return (int)cudaErrorInvalidValue;
+  divstep_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((int64_t*)fgz,
+                                                          batches, wide);
   return (int)cudaGetLastError();
 }

@@ -45,9 +45,8 @@ static __device__ __forceinline__ void fq_from_bytes_wide(uint32_t r[8],
 // applied to (f, g) and to (d, e) (the latter made divisible by 2^62 by
 // adding a multiple of q).  A fixed 10 batches (590 divsteps, enough for
 // any input below 2^256) and masks in place of branches: the same work
-// for every input, though u is a public challenge.  The chain is ~590
-// short divsteps and 10 matrix updates of 64x64-bit products, against
-// Fermat's 316 dependent Montgomery products.
+// for every input, though u is a public challenge.  The chain is 590
+// short divsteps and 10 matrix updates of 64x64-bit products.
 struct s62_t {
   int64_t v[5];
 };
@@ -123,6 +122,45 @@ static __device__ __forceinline__ int64_t divsteps_59(int64_t zeta,
   t.v = (int64_t)v;
   t.q = (int64_t)q;
   t.r = (int64_t)r;
+  return zeta;
+}
+
+// The same divsteps on 32-bit words, 30 at a time, as libsecp256k1's
+// secp256k1_modinv32_divsteps_30: the transition matrix scaled by 2^30.
+// fq_modinv does not use it; bullet_step.cu's divstep_chain_kernel times
+// a chain of it, the shortest dependent chain of a divstep on this card's
+// 32-bit ALUs, for the fold's bound.
+struct trans2x2_32_t {
+  int32_t u, v, q, r;
+};
+
+static __device__ __forceinline__ int32_t divsteps_30(int32_t zeta,
+                                                      uint32_t f0,
+                                                      uint32_t g0,
+                                                      trans2x2_32_t& t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+  uint32_t f = f0, g = g0;
+#pragma unroll
+  for (int i = 0; i < 30; i++) {
+    uint32_t c1 = (uint32_t)(zeta >> 31);  // zeta < 0
+    uint32_t c2 = 0 - (g & 1);              // g odd
+    uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    c1 &= c2;
+    zeta = (int32_t)(((uint32_t)zeta ^ c1) - 1);
+    f += g & c1;
+    u += q & c1;
+    v += r & c1;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t.u = (int32_t)u;
+  t.v = (int32_t)v;
+  t.q = (int32_t)q;
+  t.r = (int32_t)r;
   return zeta;
 }
 

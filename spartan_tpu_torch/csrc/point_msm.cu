@@ -21,10 +21,10 @@
 // m - 1 more additions; the bytes (160 B a point in, 128 B a group out)
 // are nothing beside that.  At the sizes of this slice (1,026 to 4,098
 // points) the card is mostly idle, so a launch's time is its longest
-// dependent chain, not the card's multiply rate.  The design cuts that
-// chain: a quad of lanes takes a point (point_msm.cuh), so a point
-// operation is two product latencies where one thread took eight or
-// nine, ~654 dependent product-steps a point in all.
+// dependent chain, not the card's multiply rate.  The design keeps that
+// chain short: a quad of lanes takes a point (point_msm.cuh), so a point
+// operation is two product latencies, ~654 dependent product-steps a
+// point in all.
 //
 // Design:
 // - point_mul_kernel: four lanes a point, lane k loading and storing

@@ -9,8 +9,7 @@
 // does): a doubling is four independent squarings and then four
 // independent products, an addition of a cached entry four products and
 // then four more, one of each per lane.  So a point operation costs two
-// product latencies and four rounds of shuffles, where one thread a point
-// paid eight or nine products one after another.
+// product latencies and four rounds of shuffles.
 //
 // Cached entries hold lambda (Y - X, Y + X, 2Z, 2dT) with lambda = 121666:
 // d = -121665/121666, so lambda 2d = -243330 and the entry is made from

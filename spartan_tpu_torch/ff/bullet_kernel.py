@@ -54,8 +54,11 @@ def _declare(lib) -> None:
     lib.bullet_fold_launch.argtypes = [p, p, i, p, i, p, p, p, p, p, p]
     lib.bullet_head_launch.argtypes = [p, p, p, p, p]
     lib.bullet_tail_launch.argtypes = [p, p, p, p, p, p, p]
+    # one thread's chain of divsteps, for measuring their latency
+    lib.divstep_chain_launch.argtypes = [p, i, i, p]
     for f in (lib.bullet_cross_launch, lib.bullet_fold_launch,
-              lib.bullet_head_launch, lib.bullet_tail_launch):
+              lib.bullet_head_launch, lib.bullet_tail_launch,
+              lib.divstep_chain_launch):
         f.restype = ctypes.c_int
 
 

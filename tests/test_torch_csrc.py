@@ -5,7 +5,8 @@ permutation (``csrc/keccak.cuh``), the ristretto255 encode
 multiplication by a quad of lanes (``csrc/point_msm.cuh``: the 4-way
 doubling and cached addition, the signed radix-16 recoding, the whole
 ladder, and the plain version against it bit for bit) and kernel K6's
-safegcd inverse, wide reduction and Montgomery exit
+safegcd inverse and its divstep batches (64-bit and 32-bit), wide
+reduction and Montgomery exit
 (``csrc/bullet_step.cuh``) compiled for the host with g++ and held
 against python-int oracles, ``core/keccak.py`` and
 ``core/ristretto.encode``.
@@ -85,6 +86,14 @@ void h_recode16(int8_t* dg, const uint32_t* s) {
 }
 void h_fq_inv(uint32_t* r, const uint32_t* x) { fq_inv(r, x); }
 void h_fq_modinv(uint32_t* r, const uint32_t* x) { fq_modinv(r, x); }
+int32_t h_divsteps_30(int32_t zeta, uint32_t f0, uint32_t g0, int64_t* t) {
+  trans2x2_32_t m; int32_t z = divsteps_30(zeta, f0, g0, m);
+  t[0] = m.u; t[1] = m.v; t[2] = m.q; t[3] = m.r; return z;
+}
+int64_t h_divsteps_59(int64_t zeta, uint64_t f0, uint64_t g0, int64_t* t) {
+  trans2x2_t m; int64_t z = divsteps_59(zeta, f0, g0, m);
+  t[0] = m.u; t[1] = m.v; t[2] = m.q; t[3] = m.r; return z;
+}
 void h_fq_from_mont(uint32_t* r, const uint32_t* x) { fq_from_mont(r, x); }
 void h_fq_from_bytes_wide(uint32_t* r, const uint8_t* b) {
   fq_from_bytes_wide(r, b);
@@ -302,6 +311,53 @@ def test_fq_safegcd_inverse(lib):
         inv = _op(lib, "h_fq_modinv", x)
         assert inv == pow(x, -1, Q) and x * inv % Q == 1, x
     assert _op(lib, "h_fq_modinv", 0) == 0
+
+
+def _divsteps(zeta, f, g, steps, scale):
+    """``steps`` divsteps of safegcd on python ints (f odd) in
+    libsecp256k1's form, zeta = -(delta + 1/2): the new zeta, f, g and
+    the transition matrix (u, v, q, r), started from ``scale`` times the
+    identity and doubled in u, v at every step."""
+    u, v, q, r = scale, 0, 0, scale
+    for _ in range(steps):
+        if zeta < 0 and g & 1:
+            zeta, f, g = -zeta - 2, g, (g - f) >> 1
+            u, v, q, r = 2 * q, 2 * r, q - u, r - v
+        else:
+            if g & 1:
+                g, q, r = (g + f) >> 1, q + u, r + v
+            else:
+                g >>= 1
+            zeta, u, v = zeta - 1, 2 * u, 2 * v
+    return zeta, f, g, (u, v, q, r)
+
+
+@pytest.mark.parametrize("width", [30, 59])
+def test_divsteps_batch(lib, width):
+    """A batch of K6's divsteps on the low word of f and g, 59 on 64-bit
+    words (the fold's) and 30 on 32-bit words (the form whose chain the
+    fold's bound counts): the matrix and zeta equal the python-int
+    divsteps', and the matrix maps (f, g) to 2^62 or 2^30 times the
+    batch's (f, g)."""
+    bits, scale, shift = {30: (32, 1, 30), 59: (64, 8, 62)}[width]
+    word = ctypes.c_int32 if bits == 32 else ctypes.c_int64
+    fn = getattr(lib, f"h_divsteps_{width}")
+    fn.restype = word
+    fn.argtypes = [word, ctypes.c_uint32 if bits == 32 else ctypes.c_uint64,
+                   ctypes.c_uint32 if bits == 32 else ctypes.c_uint64,
+                   ctypes.POINTER(ctypes.c_int64)]
+    rng = random.Random(29 + width)
+    cases = [(-1, Q, 1), (-1, 1, 0), (-1, Q, Q - 1), (5, 1, R - 1),
+             (-7, R - 1, 1 << 200)] + [
+        (rng.randrange(-700, 700), rng.randrange(R) | 1, rng.randrange(R))
+        for _ in range(300)]
+    for zeta, f, g in cases:
+        t = (ctypes.c_int64 * 4)()
+        got = fn(zeta, f % (1 << bits), g % (1 << bits), t)
+        zeta_n, f_n, g_n, m = _divsteps(zeta, f, g, width, scale)
+        assert (got, tuple(t)) == (zeta_n, m), (zeta, f, g)
+        u, v, q, r = m
+        assert (u * f + v * g, q * f + r * g) == (f_n << shift, g_n << shift)
 
 
 def test_fq_inverse_and_conversions(lib):

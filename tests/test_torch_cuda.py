@@ -456,3 +456,37 @@ def test_bullet_step_kernel_on_two_streams(dev):
         bf = x[3].clone()
         want = (*bullet_step_plain("fold", a, b, x[2], x[:2], bf), bf)
         assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+@pytest.mark.parametrize("wide", [0, 1], ids=["32-bit", "64-bit"])
+def test_divstep_chain_kernel(dev, wide):
+    """The divstep chain that measures the fold's bound: three batches
+    on the card equal the same batches on python ints (a batch's matrix
+    depends on the low word of f and g only)."""
+    from spartan_tpu_torch import _build
+    from spartan_tpu_torch.ff import bullet_kernel as bk
+
+    bits, steps, scale = (64, 59, 8) if wide else (32, 30, 1)
+    mask = (1 << bits) - 1
+    f, g, zeta = 0x1812631a5cf5d3ed & mask, 0x0123456789abcdef & mask, -1
+    fgz = torch.tensor([f, g, zeta], dtype=torch.int64, device=dev)
+    lib = _build.load("bullet_step", bk._declare)
+    rc = lib.divstep_chain_launch(fgz.data_ptr(), 3, wide,
+                                  _build.stream_handle(dev))
+    _build.check(rc, "divstep_chain")
+    for _ in range(3):
+        u, v, q, r = scale, 0, 0, scale
+        ff, gg = f, g
+        for _ in range(steps):
+            if zeta < 0 and gg & 1:
+                zeta, ff, gg = -zeta - 2, gg, (gg - ff) >> 1
+                u, v, q, r = 2 * q, 2 * r, q - u, r - v
+            else:
+                if gg & 1:
+                    gg, q, r = (gg + ff) >> 1, q + u, r + v
+                else:
+                    gg >>= 1
+                zeta, u, v = zeta - 1, 2 * u, 2 * v
+        f, g = (f ^ ((u ^ v) & mask)) | 1, g ^ ((q ^ r) & mask)
+    want = [(x + (1 << 63)) % (1 << 64) - (1 << 63) for x in (f, g, zeta)]
+    assert fgz.tolist() == want
