@@ -1284,6 +1284,60 @@ def product_latency_ns(dev) -> float:
     return statistics.median(per)
 
 
+def chain_latency_ns(dev, layout: int, square: int) -> float:
+    """One field product's (``square``: squaring's) latency mod p in a
+    layout of csrc/ristretto.cu's fp_chain_kernel (0: a group of 8 lanes,
+    1: one lane, 2: one lane on 10 limbs): a chain of 2^14 less one of 0,
+    over 2^14; medians of 5."""
+    import statistics
+
+    import torch
+
+    from spartan_tpu_torch import _build
+    from spartan_tpu_torch.curve import ristretto as dri
+
+    lib = _build.load("ristretto", dri._declare)
+    xy = rand_elems(torch.Generator().manual_seed(3), 2, dev)
+    steps = 1 << 14
+
+    def run(k):
+        rc = lib.fp_chain_launch(xy.data_ptr(), k, layout, square,
+                                 _build.stream_handle(dev))
+        _build.check(rc, "fp_chain")
+
+    per = [(cuda_ms(lambda: run(steps), 3) - cuda_ms(lambda: run(0), 3))
+           / steps * 1e6 for _ in range(5)]
+    return statistics.median(per)
+
+
+def launch_floor_ms(dev) -> dict:
+    """An empty kernel's time a launch, in a CUDA graph of 100 and
+    launched one by one (csrc/ristretto.cu's empty_kernel)."""
+    from spartan_tpu_torch import _build
+    from spartan_tpu_torch.curve import ristretto as dri
+
+    lib = _build.load("ristretto", dri._declare)
+
+    def run():
+        _build.check(lib.empty_launch(_build.stream_handle(dev)), "empty")
+
+    return dict(graph_ms=graph_ms(lambda: [run() for _ in range(100)], 5)
+                / 100, eager_ms=cuda_ms(run, 100))
+
+
+def fp_layout_probe(dev) -> dict:
+    """The candidate layouts' product and squaring latencies, beside the
+    one-lane fp_mul of csrc/point_msm.cu."""
+    out = {"fp_mul_one_lane_ns": product_latency_ns(dev)}
+    for name, layout in (("group8", 0), ("one_lane", 1), ("limbs10", 2)):
+        for sq in (0, 1):
+            out[f"{name}_{'sqr' if sq else 'mul'}_ns"] = chain_latency_ns(
+                dev, layout, sq)
+    out["launch_floor"] = launch_floor_ms(dev)
+    log("fp layout probe " + json.dumps(out))
+    return out
+
+
 def divstep_latency_ns(dev, wide: int) -> float:
     """One divstep's latency on the card: a one-thread chain of divstep
     batches (csrc/bullet_step.cu's divstep_chain_kernel: 30 divsteps a

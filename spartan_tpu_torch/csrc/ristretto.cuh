@@ -1,16 +1,26 @@
-// ristretto255 ENCODE (RFC 9496 section 4.3.2) of an extended point, on
-// the lazy field arithmetic of fp25519.cuh.
+// ristretto255 ENCODE (RFC 9496 section 4.3.2) of an extended point, by
+// the 8 lanes of a group (fp25519_group.cuh).
+//
+// Every lane of the group holds the point and every intermediate value
+// whole: the products (g_mul) are spread over the group, the additions,
+// selects and comparisons (fp25519.cuh) are cheap and run in every lane
+// alike.  ENCODE's inverse square root is z^((p - 5) / 8), ref10's
+// pow22523 chain: 251 squarings and 11 products, 22 more products around
+// it, each a dependent g_mul.  Only public points are encoded (each goes
+// into the transcript and the proof), so nothing here needs to be
+// constant time; the selects are branch-free all the same.
 //
 // Plain C++ apart from CUDA's qualifiers, so tests/test_torch_csrc.py
-// compiles it with g++ and holds it against spartan_tpu_torch/core/
-// ristretto.py::encode.  The steps are those of the JAX package's
-// spartan_tpu/curve/ristretto.py::compress and of the plain twin
-// spartan_tpu_torch/curve/ristretto.py::compress_plain; the encoding is
-// unique, so every correct route gives the same 32 bytes.
+// compiles it with g++ (the group's 8 lanes in a loop) and holds it
+// against spartan_tpu_torch/core/ristretto.py::encode.  The steps are
+// those of the JAX package's spartan_tpu/curve/ristretto.py::compress and
+// of the plain twin spartan_tpu_torch/curve/ristretto.py::compress_plain;
+// the encoding is unique, so every correct route gives the same 32 bytes.
 #pragma once
 #include <stdint.h>
 
 #include "fp25519.cuh"
+#include "fp25519_group.cuh"
 
 static __constant__ uint32_t FP_SQRT_M1[8] = {
     0x4a0ea0b0u, 0xc4ee1b27u, 0xad2fe478u, 0x2f431806u,
@@ -25,40 +35,32 @@ static __device__ __forceinline__ void fp_copy(uint32_t r[8],
   for (int j = 0; j < 8; j++) r[j] = a[j];
 }
 
-// r = a^(2^n) (r may alias a)
-static __device__ __forceinline__ void fp_sqn(uint32_t r[8],
-                                              const uint32_t a[8], int n) {
-  fp_copy(r, a);
-#pragma unroll 1
-  for (int i = 0; i < n; i++) fp_mul(r, r, r);
-}
-
 // r = z^((p - 5) / 8) = z^(2^252 - 3): 251 squarings and 11 products
 // (ref10's pow22523 chain)
 static __device__ void fp_pow_p58(uint32_t r[8], const uint32_t z[8]) {
   uint32_t t0[8], t1[8], t2[8];
-  fp_mul(t0, z, z);       // 2
-  fp_sqn(t1, t0, 2);      // 8
-  fp_mul(t1, z, t1);      // 9
-  fp_mul(t0, t0, t1);     // 11
-  fp_mul(t0, t0, t0);     // 22
-  fp_mul(t0, t1, t0);     // 2^5 - 1
-  fp_sqn(t1, t0, 5);
-  fp_mul(t0, t1, t0);     // 2^10 - 1
-  fp_sqn(t1, t0, 10);
-  fp_mul(t1, t1, t0);     // 2^20 - 1
-  fp_sqn(t2, t1, 20);
-  fp_mul(t1, t2, t1);     // 2^40 - 1
-  fp_sqn(t1, t1, 10);
-  fp_mul(t0, t1, t0);     // 2^50 - 1
-  fp_sqn(t1, t0, 50);
-  fp_mul(t1, t1, t0);     // 2^100 - 1
-  fp_sqn(t2, t1, 100);
-  fp_mul(t1, t2, t1);     // 2^200 - 1
-  fp_sqn(t1, t1, 50);
-  fp_mul(t0, t1, t0);     // 2^250 - 1
-  fp_sqn(t0, t0, 2);      // 2^252 - 4
-  fp_mul(r, t0, z);       // 2^252 - 3
+  g_mul(t0, z, z);       // 2
+  g_sqn(t1, t0, 2);      // 8
+  g_mul(t1, z, t1);      // 9
+  g_mul(t0, t0, t1);     // 11
+  g_mul(t0, t0, t0);     // 22
+  g_mul(t0, t1, t0);     // 2^5 - 1
+  g_sqn(t1, t0, 5);
+  g_mul(t0, t1, t0);     // 2^10 - 1
+  g_sqn(t1, t0, 10);
+  g_mul(t1, t1, t0);     // 2^20 - 1
+  g_sqn(t2, t1, 20);
+  g_mul(t1, t2, t1);     // 2^40 - 1
+  g_sqn(t1, t1, 10);
+  g_mul(t0, t1, t0);     // 2^50 - 1
+  g_sqn(t1, t0, 50);
+  g_mul(t1, t1, t0);     // 2^100 - 1
+  g_sqn(t2, t1, 100);
+  g_mul(t1, t2, t1);     // 2^200 - 1
+  g_sqn(t1, t1, 50);
+  g_mul(t0, t1, t0);     // 2^250 - 1
+  g_sqn(t0, t0, 2);      // 2^252 - 4
+  g_mul(r, t0, z);       // 2^252 - 3
 }
 
 static __device__ __forceinline__ bool fp_eq(const uint32_t a[8],
@@ -110,47 +112,47 @@ static __device__ void ristretto_encode(uint32_t s[8], const ge_t& p) {
   uint32_t u1[8], u2[8], a[8], b[8], v[8];
   fp_add(a, p.z, p.y);
   fp_sub(b, p.z, p.y);
-  fp_mul(u1, a, b);
-  fp_mul(u2, p.x, p.y);
-  fp_mul(a, u2, u2);
-  fp_mul(v, u1, a);
+  g_mul(u1, a, b);
+  g_mul(u2, p.x, p.y);
+  g_mul(a, u2, u2);
+  g_mul(v, u1, a);
   // invsqrt = SQRT_RATIO_M1(1, v)
   uint32_t v3[8], v7[8], r[8], check[8], one[8] = {1, 0, 0, 0, 0, 0, 0, 0};
-  fp_mul(a, v, v);
-  fp_mul(v3, a, v);
-  fp_mul(a, v3, v3);
-  fp_mul(v7, a, v);
+  g_mul(a, v, v);
+  g_mul(v3, a, v);
+  g_mul(a, v3, v3);
+  g_mul(v7, a, v);
   fp_pow_p58(a, v7);
-  fp_mul(r, v3, a);
-  fp_mul(a, r, r);
-  fp_mul(check, v, a);
+  g_mul(r, v3, a);
+  g_mul(a, r, r);
+  g_mul(check, v, a);
   uint32_t neg_one[8], neg_i[8];
   fp_neg(neg_one, one);
   fp_neg(neg_i, FP_SQRT_M1);
-  bool flip = fp_eq(check, neg_one) || fp_eq(check, neg_i);
-  fp_mul(a, r, FP_SQRT_M1);
+  bool flip = fp_eq(check, neg_one) | fp_eq(check, neg_i);
+  g_mul(a, r, FP_SQRT_M1);
   fp_select(r, flip, a, r);
   uint32_t inv[8];
   fp_abs(inv, r);
   // den1, den2, z_inv = den1 den2 T; rotate when T z_inv is negative
   uint32_t den1[8], den2[8], zinv[8];
-  fp_mul(den1, inv, u1);
-  fp_mul(den2, inv, u2);
-  fp_mul(a, den1, den2);
-  fp_mul(zinv, a, p.t);
-  fp_mul(a, p.t, zinv);
+  g_mul(den1, inv, u1);
+  g_mul(den2, inv, u2);
+  g_mul(a, den1, den2);
+  g_mul(zinv, a, p.t);
+  g_mul(a, p.t, zinv);
   bool rotate = fp_is_negative(a);
   uint32_t x[8], y[8], den_inv[8];
-  fp_mul(a, p.y, FP_SQRT_M1);  // iy0
-  fp_mul(b, p.x, FP_SQRT_M1);  // ix0
+  g_mul(a, p.y, FP_SQRT_M1);  // iy0
+  g_mul(b, p.x, FP_SQRT_M1);  // ix0
   fp_select(x, rotate, a, p.x);
   fp_select(y, rotate, b, p.y);
-  fp_mul(a, den1, FP_INVSQRT_A_MINUS_D);  // enchanted
+  g_mul(a, den1, FP_INVSQRT_A_MINUS_D);  // enchanted
   fp_select(den_inv, rotate, a, den2);
-  fp_mul(a, x, zinv);
+  g_mul(a, x, zinv);
   fp_neg(b, y);
   fp_select(y, fp_is_negative(a), b, y);
   fp_sub(a, p.z, y);
-  fp_mul(b, den_inv, a);
+  g_mul(b, den_inv, a);
   fp_abs(s, b);
 }
