@@ -1021,10 +1021,15 @@ def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
 # multiply-adds each) over the card's IMAD rate.
 K3_STATES = 1024
 K4_POINTS = 4096
+# K4 also on the last 1, 3 and 33 of its points: a partial group of lanes,
+# a partial block (16 points a block of 128 threads) and more than two
+# blocks
+K4_SIZES = [1, 3, 33]
 KECCAK_CHAIN_PER_ROUND = 7
 ALU_LATENCY_CYCLES = 4
 CLOCK_HZ = 1.98e9
 ENCODE_FP_MULS = 284
+ENCODE_SQUARINGS = 251
 # B2 with a device challenge: the NIZK's phase tables and the product
 # layers' largest batch
 DEVICE_R_CASES = [(4, (1 << 20,)), (2, (1 << 21,)), (3, (18, 1 << 19))]
@@ -1045,10 +1050,22 @@ def compress_bound(k: int) -> dict:
                 bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
-def check_strobe_step(dev, gen) -> dict:
-    """K3 against its plain version on K3_STATES random states (a mask
-    and three device segments, then the permutation), and without a mask
-    or a permutation; timed in a CUDA graph."""
+# K3's segment sets beyond the three above: 16 adjacent segments (the
+# most a step takes) ending at byte 199, and segments at odd offsets,
+# adjacent and apart, the last ending at byte 199; as (offset, length)
+K3_SEG_SETS = {
+    "three": [(8, 32), (60, 64), (193, 7)],
+    "sixteen": [(64 + sum(range(1, n)), n) for n in range(1, 17)],
+    "odd": [(1, 6), (7, 24), (31, 2), (35, 100), (135, 65)],
+}
+
+
+def check_strobe_step(dev, gen, floor: dict) -> dict:
+    """K3 against its plain version on K3_STATES random states for each
+    segment set of K3_SEG_SETS: a mask, the segments and the permutation;
+    for the first set also without a mask, and without the permutation;
+    timed in a CUDA graph and launched one by one, beside the launch
+    floor of an empty kernel."""
     import torch
 
     from spartan_tpu_torch.transcript import device as dt
@@ -1059,34 +1076,44 @@ def check_strobe_step(dev, gen) -> dict:
 
     states = torch.stack([rbytes(200) for _ in range(K3_STATES)]).to(dev)
     mask = bytes(rbytes(200).tolist())
-    segs = [(rbytes(n).to(dev), off) for n, off in ((32, 8), (64, 60),
-                                                     (7, 193))]
-    err = 0
-    for m, permute in ((mask, True), (None, True), (mask, False)):
-        want = states.clone()
-        dt.strobe_step_plain(want, m, segs, permute)
-        got = states.clone()
-        for i in range(K3_STATES):
-            dt.strobe_step(got[i], m, segs, permute)
-        torch.cuda.synchronize()
-        err = max(err, max_abs_err(got.int(), want.int()))
+    err, forms = 0, []
+    for name, spans in K3_SEG_SETS.items():
+        segs = [(rbytes(n).to(dev), off) for off, n in spans]
+        cases = ((mask, True), (None, True), (mask, False)) \
+            if name == "three" else ((mask, True), (None, False))
+        for m, permute in cases:
+            want = states.clone()
+            dt.strobe_step_plain(want, m, segs, permute)
+            got = states.clone()
+            for i in range(K3_STATES):
+                dt.strobe_step(got[i], m, segs, permute)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got.int(), want.int()))
+            forms.append(f"{name}/{'mask' if m else 'no mask'}/"
+                         f"{'permute' if permute else 'absorb'}")
+        if name == "three":
+            timed = segs
     one = states[0].clone()
     t0 = time.perf_counter()
-    dt.strobe_step_plain(one, mask, segs, True)
+    dt.strobe_step_plain(one, mask, timed, True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    ms = graph_ms(lambda: [dt.strobe_step(one, mask, segs, True)
+    ms = graph_ms(lambda: [dt.strobe_step(one, mask, timed, True)
                            for _ in range(100)], 5) / 100
-    eager = cuda_ms(lambda: dt.strobe_step(one, mask, segs, True), 100)
+    eager = cuda_ms(lambda: dt.strobe_step(one, mask, timed, True), 100)
     bound = strobe_step_bound()
-    log(f"strobe_step (K3) on {K3_STATES} states x 3 forms: max_abs_err "
-        f"{err}; {ms * 1e3:.2f} us in a CUDA graph ({eager * 1e3:.2f} us "
-        f"launched one by one), bound {bound['bound_ms'] * 1e3:.3f} us "
-        f"({bound['bound_by']}), plain {plain_ms:.1f} ms")
+    log(f"strobe_step (K3) on {K3_STATES} states x {len(forms)} forms "
+        f"({', '.join(forms)}): max_abs_err {err}; {ms * 1e3:.3f} us in a "
+        f"CUDA graph ({eager * 1e3:.3f} us launched one by one), bound "
+        f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']}); an empty "
+        f"kernel {floor['graph_ms'] * 1e3:.3f} us in a graph, "
+        f"{floor['eager_ms'] * 1e3:.3f} us one by one; plain "
+        f"{plain_ms:.1f} ms")
     if err:
         raise AssertionError("strobe_step differs from its plain version")
     return dict(shape=[200], max_abs_err=err, ms=ms, eager_ms=eager,
-                plain_ms=plain_ms, **bound)
+                plain_ms=plain_ms, forms=forms, launch_floor_ms=floor,
+                **bound)
 
 
 def encode_branch(pt) -> tuple[bool, bool]:
@@ -1104,10 +1131,13 @@ def encode_branch(pt) -> tuple[bool, bool]:
     return rotate, F.is_negative(x * z_inv % P)
 
 
-def check_compress(dev, gen) -> dict:
+def check_compress(dev, gen, lat: dict, floor: dict) -> dict:
     """K4 against its plain version on K4_POINTS random points (s * B,
-    made by B1), the identity, and points of every branch; timed at the
-    ZK rounds' two points and at K4_POINTS."""
+    made by B1), the identity, and points of every branch, and on the
+    first K4_SIZES of them (partial groups and blocks); timed at the ZK
+    rounds' two points and at K4_POINTS + 1, beside its bound, its chain
+    floor at the group's product and squaring latencies ``lat`` and at
+    the one-lane product's, and the launch floor ``floor``."""
     import torch
 
     from spartan_tpu_torch.commitments import build_table
@@ -1131,6 +1161,10 @@ def check_compress(dev, gen) -> dict:
     got = dri.compress(p)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
+    for n in K4_SIZES:
+        got_n = dri.compress(ed.unstack(pts[-n:]))
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got_n, want[-n:]))
     p2 = ed.unstack(pts[:2])
     t0 = time.perf_counter()
     dri.compress_plain(p2)
@@ -1140,16 +1174,31 @@ def check_compress(dev, gen) -> dict:
     ms_all = graph_ms(lambda: dri.compress(p), 5)
     bound = compress_bound(2)
     bound_all = compress_bound(K4_POINTS + 1)
+    chain = (ENCODE_SQUARINGS * lat["group_sqr_ns"]
+             + (ENCODE_FP_MULS - ENCODE_SQUARINGS) * lat["group_mul_ns"])
+    chain_ms = chain * 1e-6
+    one_lane_ms = ENCODE_FP_MULS * lat["fp_mul_one_lane_ns"] * 1e-6
     log(f"ristretto_compress (K4) on {K4_POINTS + 1} points (branches "
-        f"{sorted(branches)}): max_abs_err {err}; 2 points {ms:.4f} ms in "
-        f"a CUDA graph, bound {bound['bound_ms']:.6f} ms, plain "
-        f"{plain_ms:.1f} ms; {K4_POINTS + 1} points {ms_all:.4f} ms, bound "
+        f"{sorted(branches)}) and on the last {K4_SIZES} of them: "
+        f"max_abs_err {err}; 2 points {ms:.4f} ms in a CUDA graph, bound "
+        f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}), chain floor "
+        f"{chain_ms:.4f} ms ({ENCODE_SQUARINGS} squarings x "
+        f"{lat['group_sqr_ns']:.1f} ns + "
+        f"{ENCODE_FP_MULS - ENCODE_SQUARINGS} products x "
+        f"{lat['group_mul_ns']:.1f} ns on a group of 8 lanes; "
+        f"{one_lane_ms:.4f} ms at the one-lane product's "
+        f"{lat['fp_mul_one_lane_ns']:.1f} ns), an empty kernel "
+        f"{floor['graph_ms']:.4f} ms in a graph, plain {plain_ms:.1f} ms; "
+        f"{K4_POINTS + 1} points {ms_all:.4f} ms, bound "
         f"{bound_all['bound_ms']:.4f} ms ({bound_all['bound_by']}), plain "
         f"{plain_all_ms:.1f} ms")
     if err:
         raise AssertionError("compress differs from its plain version")
     return dict(shape=[2], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bound, ms_4097=ms_all, plain_ms_4097=plain_all_ms,
+                **bound, chain_floor_ms=chain_ms,
+                chain_floor_one_lane_ms=one_lane_ms, product_latency_ns=lat,
+                launch_floor_ms=floor, ms_4097=ms_all,
+                plain_ms_4097=plain_all_ms,
                 bound_ms_4097=bound_all["bound_ms"])
 
 
@@ -1323,6 +1372,18 @@ def launch_floor_ms(dev) -> dict:
 
     return dict(graph_ms=graph_ms(lambda: [run() for _ in range(100)], 5)
                 / 100, eager_ms=cuda_ms(run, 100))
+
+
+def encode_latencies(dev) -> dict:
+    """K4's product and squaring latencies on a group of 8 lanes beside
+    the one-lane fp_mul's (csrc/point_msm.cu)."""
+    lat = {"fp_mul_one_lane_ns": product_latency_ns(dev),
+           "group_mul_ns": chain_latency_ns(dev, 0, 0),
+           "group_sqr_ns": chain_latency_ns(dev, 0, 1)}
+    log(f"fp latency: one-lane fp_mul {lat['fp_mul_one_lane_ns']:.1f} ns; "
+        f"a group of 8 lanes: product {lat['group_mul_ns']:.1f} ns, "
+        f"squaring {lat['group_sqr_ns']:.1f} ns")
+    return lat
 
 
 def fp_layout_probe(dev) -> dict:
@@ -1530,46 +1591,68 @@ def check_bullet_step(dev, gen) -> dict:
 
 
 def check_no_fallback(dev, gen) -> None:
-    """A forced launch failure (K5 given a lane count its launcher
-    refuses) and a forced build failure (K6 built into an empty directory
-    by a compiler that fails) each raise, and no plain version runs in
-    the kernel's place."""
+    """Forced launch failures (K5 given a lane count its launcher refuses,
+    K4 given more points than its launcher takes) and forced build
+    failures (K6 and K3 built into an empty directory by a compiler that
+    fails) each raise, and no plain version runs in the kernel's place."""
     import tempfile
 
     import torch
 
     from spartan_tpu_torch import _build
+    from spartan_tpu_torch.curve import edwards as ed
     from spartan_tpu_torch.curve import point_msm as pm
+    from spartan_tpu_torch.curve import ristretto as dri
     from spartan_tpu_torch.ff import bullet_kernel as bk
+    from spartan_tpu_torch.transcript import device as dt
 
     pts, s = random_points(gen, 8, dev), rand_elems(gen, 8, dev)
-    plain = (pm.point_msm_plain.cuda_calls, bk.bullet_step_plain.cuda_calls)
+    plains = (pm.point_msm_plain, bk.bullet_step_plain, dri.compress_plain,
+              dt.strobe_step_plain)
+    calls = [f.cuda_calls for f in plains]
+
+    def must_raise(what, fn):
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            log(f"forced {what} raised: {str(e).splitlines()[0]}")
+        else:
+            raise AssertionError(f"a forced {what} did not raise")
+
     saved_lanes = pm.lanes
     pm.lanes = lambda offsets: 3
     try:
-        pm.point_msm(pts, s, [0, 8])
-        torch.cuda.synchronize()
-    except RuntimeError as e:
-        log(f"forced K5 launch failure raised: {e}")
-    else:
-        raise AssertionError("a refused K5 launch did not raise")
+        must_raise("K5 launch failure",
+                   lambda: pm.point_msm(pts, s, [0, 8]))
     finally:
         pm.lanes = saved_lanes
-    saved = (_build.nvcc, _build.build_dir, _build._libs.pop("bullet_step"))
-    with tempfile.TemporaryDirectory() as tmp:
-        _build.nvcc = lambda: "false"
-        _build.build_dir = lambda: tmp
-        try:
-            bk.bullet_step("head", torch.zeros(64, dtype=torch.uint8,
-                                               device=dev), s[0], s[1])
-        except RuntimeError as e:
-            log(f"forced K6 build failure raised: {str(e).splitlines()[0]}")
-        else:
-            raise AssertionError("a failed K6 build did not raise")
-        finally:
-            _build.nvcc, _build.build_dir, _build._libs["bullet_step"] = saved
-    if (pm.point_msm_plain.cuda_calls,
-            bk.bullet_step_plain.cuda_calls) != plain:
+    lib = _build.load("ristretto", dri._declare)
+    saved_launch = lib.ristretto_encode_launch
+    lib.ristretto_encode_launch = lambda p, o, k, st: saved_launch(
+        p, o, 1 << 27, st)
+    try:
+        must_raise("K4 launch failure",
+                   lambda: dri.compress(ed.unstack(pts)))
+    finally:
+        lib.ristretto_encode_launch = saved_launch
+    for what, name, run in (
+            ("K6 build failure", "bullet_step",
+             lambda: bk.bullet_step("head", torch.zeros(
+                 64, dtype=torch.uint8, device=dev), s[0], s[1])),
+            ("K3 build failure", "keccak",
+             lambda: dt.strobe_step(torch.zeros(200, dtype=torch.uint8,
+                                                device=dev), None, [],
+                                    True))):
+        saved = (_build.nvcc, _build.build_dir, _build._libs.pop(name))
+        with tempfile.TemporaryDirectory() as tmp:
+            _build.nvcc = lambda: "false"
+            _build.build_dir = lambda: tmp
+            try:
+                must_raise(what, run)
+            finally:
+                _build.nvcc, _build.build_dir, _build._libs[name] = saved
+    if [f.cuda_calls for f in plains] != calls:
         raise AssertionError("a plain version ran in place of a kernel")
 
 
@@ -1839,8 +1922,9 @@ def main() -> int:
     fold = check_fold_evals(dev, gen, ROUND_CASES)
     fold.update(check_round_chains(dev, gen))
     prod = check_cubic_prod(dev, gen)
-    k3 = check_strobe_step(dev, gen)
-    k4 = check_compress(dev, gen)
+    floor = launch_floor_ms(dev)
+    k3 = check_strobe_step(dev, gen, floor)
+    k4 = check_compress(dev, gen, encode_latencies(dev), floor)
     fold["device_r"] = check_fold_evals_device_r(dev, gen)
     k5 = check_point_msm(dev, gen)
     k6 = check_bullet_step(dev, gen)
@@ -1915,7 +1999,7 @@ def main() -> int:
         dict(name="ristretto_compress", route="cuda",
              source="spartan_tpu_torch/csrc/ristretto.cu",
              replaces="spartan_tpu/curve/ristretto.py:26",
-             launches=gated["nizk"]["launches"]["ristretto_compress"],
+             launches=summary["launches"]["ristretto_compress"],
              launches_by_path=by_path["ristretto_compress"],
              library_ms=None, **k4),
         dict(name="point_msm", route="cuda",

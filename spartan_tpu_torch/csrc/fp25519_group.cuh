@@ -9,24 +9,22 @@
 // indices mod 8, f_i = 38 when i > k and g_i = 38 when i >= k (the terms
 // that land in the high half), else 1: 16 half-products a lane, S_k <
 // 2^42.  b_{k-i} is b reversed and rotated by the lane index, three
-// stages of selects.  The group then normalises its 8 columns: the carry
-// S_k >> 32 moves one lane up by a shuffle (lane 7's to lane 0, times 38),
-// which leaves at most a 1-bit carry a word; one carry-lookahead over the
-// group's ballot bits resolves those.  A carry out of word 7 adds 38 to
-// word 0 in a second lookahead, which cannot carry out again.  Last, 8
-// shuffles give every lane the whole result.  So a product's chain is a
-// few dependent multiply-adds, one shuffle, three ballots and the final
-// shuffles, not the 8-row carry chain of a one-lane product.
+// stages of selects.  Then the group exchanges its columns: 16 shuffles
+// (the low and the high word of each S_k) give every lane all of them,
+// and every lane adds them up in one 8-word carry chain, word k + 1
+// taking S_k >> 32 (word 0 taking 38 times S_7 >> 32), then folds the
+// carry out of word 7 as fp25519.cuh does.  So a product's chain is a few
+// dependent multiply-adds, one round of shuffles and 17 carry steps, not
+// the 8-row carry chain of a one-lane product.
 //
 // The same source runs on the host (no __CUDA_ARCH__: nvcc's host pass,
 // and g++ in tests/test_torch_csrc.py), where a glane holds the 8 lanes of
-// one group and each per-lane step loops over them, a shuffle or a ballot
-// reading every lane before writing any.  Whole values are plain
+// one group and each per-lane step loops over them.  Whole values are plain
 // uint32_t[8] on both sides.
 //
 // On the device every lane of the warp must run g_mul together (full-mask
-// shuffles and ballots), so a kernel gives its spare lanes a copy of the
-// last group's work.
+// shuffles), so a kernel gives its spare lanes a copy of the last group's
+// work.
 #pragma once
 #include <stdint.h>
 
@@ -51,41 +49,6 @@ static __device__ __forceinline__ uint32_t g_k(int j) {
   return threadIdx.x & (G_LANES - 1);
 #else
   return (uint32_t)j;
-#endif
-}
-
-// r = x of lane k - 1 in lane k (lane 7's in lane 0); r may alias x
-static __device__ __forceinline__ void g_from_prev(glane& r, const glane& x) {
-#if defined(__CUDA_ARCH__)
-  uint32_t lane = threadIdx.x & 31;
-  r.v[0] = __shfl_sync(0xffffffffu, x.v[0],
-                       (lane & ~7u) | ((lane - 1) & 7u));
-#else
-  glane t = x;
-  for (int j = 0; j < GN; j++) r.v[j] = t.v[(j + 7) & 7];
-#endif
-}
-
-// bit k set when lane k's x is not 0: the same 8 bits in every lane of
-// the group
-static __device__ __forceinline__ uint32_t g_ballot(const glane& x) {
-#if defined(__CUDA_ARCH__)
-  uint32_t b = __ballot_sync(0xffffffffu, x.v[0] != 0);
-  return (b >> (threadIdx.x & 24)) & 0xffu;
-#else
-  uint32_t b = 0;
-  for (int j = 0; j < GN; j++) b |= (uint32_t)(x.v[j] != 0) << j;
-  return b;
-#endif
-}
-
-// true in every lane when any lane of the warp (the group on the host)
-// has e != 0
-static __device__ __forceinline__ bool g_any(uint32_t e) {
-#if defined(__CUDA_ARCH__)
-  return __any_sync(0xffffffffu, e != 0);
-#else
-  return e != 0;
 #endif
 }
 
@@ -128,63 +91,25 @@ static __device__ __forceinline__ uint64_t g_column(const uint32_t a[8],
   return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
-// u += d word by word with the carries run through the group's words
-// (d <= 38 in lane 0, d <= 1 in the others); returns the carry out of
-// word 7, the same in every lane of the group.  Carry-lookahead: a word
-// generates a carry when u + d passes 2^32 and propagates one when u + d
-// is 2^32 - 1; in x + g with x = generate | propagate and g = generate,
-// the carry into bit k is bit k of (x + g) ^ x ^ g.
-static __device__ __forceinline__ uint32_t g_add_resolve(glane& u,
-                                                         const glane& d) {
-  glane gen, prop;
-#pragma unroll
-  for (int j = 0; j < GN; j++) {
-    uint64_t v = (uint64_t)u.v[j] + d.v[j];
-    u.v[j] = (uint32_t)v;
-    gen.v[j] = (uint32_t)(v >> 32);
-    prop.v[j] = u.v[j] == 0xffffffffu;
-  }
-  uint32_t g = g_ballot(gen), x = g | g_ballot(prop);
-  uint32_t c = (x + g) ^ x ^ g;
-#pragma unroll
-  for (int j = 0; j < GN; j++) u.v[j] += (c >> g_k(j)) & 1u;
-  return c >> 8;
-}
-
 // r = a * b mod p, lazy (< 2^256); a, b, r whole and the same in every
 // lane of the group (r may alias a or b)
 static __device__ __forceinline__ void g_mul(uint32_t r[8],
                                              const uint32_t a[8],
                                              const uint32_t b[8]) {
-  glane lo, c, d;
+  glane lo, hi;
 #pragma unroll
   for (int j = 0; j < GN; j++) {
     uint64_t s = g_column(a, b, g_k(j));
     lo.v[j] = (uint32_t)s;
-    c.v[j] = (uint32_t)(s >> 32);  // < 2^10
+    hi.v[j] = (uint32_t)(s >> 32);  // < 2^10
   }
-  g_from_prev(c, c);
+  uint32_t l[8], h[8];
+  g_gather(h, hi);
+  g_gather(l, lo);
+  r[0] = madlo_cc(h[7], 38u, l[0]);
 #pragma unroll
-  for (int j = 0; j < GN; j++) {
-    uint64_t t = (uint64_t)lo.v[j] + (uint64_t)c.v[j] * (g_k(j) ? 1u : 38u);
-    lo.v[j] = (uint32_t)t;
-    d.v[j] = (uint32_t)(t >> 32);  // 0 or 1, owed to the next word
-  }
-  uint32_t bits = g_ballot(d);
-#pragma unroll
-  for (int j = 0; j < GN; j++) {
-    uint32_t k = g_k(j);
-    d.v[j] = k ? (bits >> (k - 1)) & 1u : 38u * (bits >> 7);
-  }
-  uint32_t e = g_add_resolve(lo, d);
-  // past 2^256: add 38 to word 0.  The sum was below 2^256 + 2^225, so
-  // what is left is below 2^225 and cannot pass 2^256 again.
-  if (g_any(e)) {
-#pragma unroll
-    for (int j = 0; j < GN; j++) d.v[j] = g_k(j) ? 0u : 38u * e;
-    g_add_resolve(lo, d);
-  }
-  g_gather(r, lo);
+  for (int j = 1; j < 8; j++) r[j] = addc_cc(l[j], h[j - 1]);
+  fp_fold38(r, addc(0, 0));
 }
 
 // r = a^(2^n) (r may alias a)

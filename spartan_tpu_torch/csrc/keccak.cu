@@ -13,15 +13,18 @@
 // With permute = 0 it only absorbs (before the state is read back).
 //
 // Bound on this card: latency.  The bytes are 400 and a few segments;
-// the permutation is 24 dependent rounds of ~12 dependent 64-bit ALU
-// steps.  Design: one warp; its lanes XOR the bytes in shared memory,
-// lane 0 runs the 24 rounds on the 25 lanes in registers (keccak.cuh),
-// the warp writes the state back.  A permutation spread over 25 lanes
-// with shuffles would cut the chain a little but not the launch, which
-// dominates.  The plain PyTorch twin is
+// the permutation is 24 dependent rounds of a few dependent 64-bit ALU
+// steps.  Design: one warp, one Keccak lane a warp lane (keccak.cuh), so
+// a round is four rounds of shuffles and a few ALU steps a lane.  Lane t
+// takes its 8 state bytes XOR its word of the mask into shared memory;
+// the lanes XOR the segments' bytes in (the segments do not overlap, so
+// no byte is written twice and one __syncwarp after all of them is
+// enough); each lane then runs the rounds on its word and writes its 8
+// bytes back.  The plain PyTorch twin is
 // spartan_tpu_torch/transcript/device.py::strobe_step_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "keccak.cuh"
 
@@ -29,6 +32,11 @@
 
 struct mask_t {
   uint8_t b[200];
+};
+
+// the same 200 bytes as 25 little-endian words
+struct mask_words_t {
+  uint64_t w[25];
 };
 
 struct seg_t {
@@ -42,28 +50,29 @@ struct segs_t {
   int n;
 };
 
-__global__ void strobe_step_kernel(uint8_t* __restrict__ state, mask_t mask,
-                                   segs_t segs, int permute) {
-  __shared__ uint64_t lanes[25];
-  uint8_t* sh = reinterpret_cast<uint8_t*>(lanes);
+__global__ void __launch_bounds__(32)
+    strobe_step_kernel(uint8_t* __restrict__ state, mask_words_t mask,
+                       segs_t segs, int permute) {
+  __shared__ uint64_t sh[25];
   int t = threadIdx.x;
-  for (int i = t; i < 200; i += 32) sh[i] = state[i] ^ mask.b[i];
+  if (t < 25) {
+    uint64_t w = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) w |= (uint64_t)state[8 * t + j] << (8 * j);
+    sh[t] = w ^ mask.w[t];
+  }
   __syncwarp();
-  for (int k = 0; k < segs.n; k++) {
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(sh);
+  for (int k = 0; k < segs.n; k++)
     for (int i = t; i < segs.s[k].len; i += 32)
-      sh[segs.s[k].dst + i] ^= segs.s[k].src[i];
-    __syncwarp();
-  }
-  if (permute && t == 0) {
-    uint64_t a[25];
-#pragma unroll
-    for (int i = 0; i < 25; i++) a[i] = lanes[i];
-    keccak_f1600(a);
-#pragma unroll
-    for (int i = 0; i < 25; i++) lanes[i] = a[i];
-  }
+      bytes[segs.s[k].dst + i] ^= segs.s[k].src[i];
   __syncwarp();
-  for (int i = t; i < 200; i += 32) state[i] = sh[i];
+  klane a;
+  a.v[0] = sh[t < 25 ? t : t - 25];
+  if (permute) keccak_f1600_lanes(a);
+  if (t < 25)
+#pragma unroll
+    for (int j = 0; j < 8; j++) state[8 * t + j] = (uint8_t)(a.v[0] >> (8 * j));
 }
 
 // state: 200 bytes on the device, updated in place; segs.n <= MAX_SEGS,
@@ -71,7 +80,9 @@ __global__ void strobe_step_kernel(uint8_t* __restrict__ state, mask_t mask,
 extern "C" int strobe_step_launch(void* state, mask_t mask, segs_t segs,
                                   int permute, void* stream) {
   if (segs.n < 0 || segs.n > MAX_SEGS) return (int)cudaErrorInvalidValue;
+  mask_words_t m;
+  memcpy(&m, &mask, sizeof m);
   strobe_step_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (uint8_t*)state, mask, segs, permute);
+      (uint8_t*)state, m, segs, permute);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,29 @@
-// keccak-f[1600] on 25 64-bit lanes (lane x + 5y), the permutation of
-// the STROBE-128 sponge under the merlin transcript.
+// keccak-f[1600], the permutation of the STROBE-128 sponge under the
+// merlin transcript, with one 64-bit Keccak lane a warp lane: lane t < 25
+// holds A[t], t = x + 5y.  A round is
+//   theta: the column parity C[x] from the four other lanes of the column
+//          (shuffles), then D[x] = C[x - 1] ^ rol(C[x + 1], 1) from the
+//          neighbouring columns' lanes of the same row (shuffles);
+//   rho and pi: one shuffle from the lane's source and a rotate by its
+//          own amount (both from per-lane tables);
+//   chi:   A = B ^ (~B[x + 1] & B[x + 2]), two shuffles;
+//   iota:  lane 0 takes the round constant.
+// Lanes 25-31 mirror lanes 0-6 so that every lane of the warp takes part
+// in the full-mask shuffles; nobody reads them.
 //
-// Plain C++ apart from CUDA's qualifiers, so tests/test_torch_csrc.py
-// compiles it with g++ and holds it against spartan_tpu_torch/core/
-// keccak.py.  The rounds loop stays rolled; inside a round every index
-// is a constant, so the 25 lanes live in registers.
+// The same source runs on the host (no __CUDA_ARCH__: nvcc's host pass,
+// and g++ in tests/test_torch_csrc.py), where a klane holds the warp's 32
+// lanes and a shuffle is an index into them (every lane read before any
+// is written), so the rounds are checked against
+// spartan_tpu_torch/core/keccak.py without a card.
 #pragma once
 #include <stdint.h>
+
+#if defined(__CUDA_ARCH__)
+#define KN 1  // this lane's value
+#else
+#define KN 32  // the warp's lanes, lane t at v[t]
+#endif
 
 static __constant__ uint64_t KECCAK_RC[24] = {
     0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull,
@@ -17,60 +34,98 @@ static __constant__ uint64_t KECCAK_RC[24] = {
     0x8000000000008003ull, 0x8000000000008002ull, 0x8000000000000080ull,
     0x000000000000800Aull, 0x800000008000000Aull, 0x8000000080008081ull,
     0x8000000000008080ull, 0x0000000080000001ull, 0x8000000080008008ull};
+// rho and pi together: lane t takes lane KECCAK_PI_SRC[t] of the theta
+// output rotated left by KECCAK_ROTN[t] (B[y + 5((2x + 3y) mod 5)] =
+// rol(A[x + 5y], r[x][y]))
+static __constant__ uint8_t KECCAK_PI_SRC[25] = {
+    0, 6, 12, 18, 24, 3, 9, 10, 16, 22, 1, 7, 13, 19, 20,
+    4, 5, 11, 17, 23, 2, 8, 14, 15, 21};
+static __constant__ uint8_t KECCAK_ROTN[25] = {
+    0, 44, 43, 21, 14, 28, 20, 3, 45, 61, 1, 6, 25, 8, 18,
+    27, 36, 10, 15, 56, 62, 55, 39, 41, 2};
 
-static __device__ __forceinline__ uint64_t rol64(uint64_t v, int n) {
-  return n ? (v << n) | (v >> (64 - n)) : v;
+// a 64-bit value in each lane of the warp
+struct klane {
+  uint64_t v[KN];
+};
+
+// a lane index (or any per-lane 32-bit value) in each lane
+struct kidx {
+  uint32_t v[KN];
+};
+
+// the warp lane that element j of a klane belongs to
+static __device__ __forceinline__ uint32_t k_lane(int j) {
+#if defined(__CUDA_ARCH__)
+  return threadIdx.x & 31;
+#else
+  return (uint32_t)j;
+#endif
 }
 
-// one round: theta, rho and pi, chi, iota
-static __device__ __forceinline__ void keccak_round(uint64_t a[25],
-                                                    uint64_t rc) {
-  uint64_t c[5], b[25];
+// r = x of lane src in each lane (r may alias x)
+static __device__ __forceinline__ void k_shfl(klane& r, const klane& x,
+                                              const kidx& src) {
+#if defined(__CUDA_ARCH__)
+  r.v[0] = __shfl_sync(0xffffffffu, x.v[0], src.v[0]);
+#else
+  klane t = x;
+  for (int j = 0; j < KN; j++) r.v[j] = t.v[src.v[j]];
+#endif
+}
+
+static __device__ __forceinline__ uint64_t k_rol(uint64_t v, uint32_t n) {
+  return (v << n) | (v >> ((64 - n) & 63));
+}
+
+// each lane's sources: the other four lanes of its column, the two
+// neighbouring columns, the rho-pi source and the two chi operands
+struct kplan {
+  kidx col[4], xm1, xp1, pi, chi1, chi2, rot;
+};
+
+static __device__ __forceinline__ void k_plan(kplan& pl) {
 #pragma unroll
-  for (int x = 0; x < 5; x++)
-    c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
+  for (int j = 0; j < KN; j++) {
+    uint32_t t = k_lane(j), l = t < 25 ? t : t - 25;
+    uint32_t x = l % 5, y = l / 5;
 #pragma unroll
-  for (int x = 0; x < 5; x++) {
-    uint64_t d = c[(x + 4) % 5] ^ rol64(c[(x + 1) % 5], 1);
-#pragma unroll
-    for (int y = 0; y < 5; y++) a[x + 5 * y] ^= d;
+    for (int m = 0; m < 4; m++) pl.col[m].v[j] = x + 5 * ((y + 1 + m) % 5);
+    pl.xm1.v[j] = (x + 4) % 5 + 5 * y;
+    pl.xp1.v[j] = (x + 1) % 5 + 5 * y;
+    pl.pi.v[j] = KECCAK_PI_SRC[l];
+    pl.rot.v[j] = KECCAK_ROTN[l];
+    pl.chi1.v[j] = (x + 1) % 5 + 5 * y;
+    pl.chi2.v[j] = (x + 2) % 5 + 5 * y;
   }
-  // b[y + 5 ((2x + 3y) mod 5)] = rol(a[x + 5y], r[x][y])
-  b[0] = rol64(a[0], 0);
-  b[16] = rol64(a[5], 36);
-  b[7] = rol64(a[10], 3);
-  b[23] = rol64(a[15], 41);
-  b[14] = rol64(a[20], 18);
-  b[10] = rol64(a[1], 1);
-  b[1] = rol64(a[6], 44);
-  b[17] = rol64(a[11], 10);
-  b[8] = rol64(a[16], 45);
-  b[24] = rol64(a[21], 2);
-  b[20] = rol64(a[2], 62);
-  b[11] = rol64(a[7], 6);
-  b[2] = rol64(a[12], 43);
-  b[18] = rol64(a[17], 15);
-  b[9] = rol64(a[22], 61);
-  b[5] = rol64(a[3], 28);
-  b[21] = rol64(a[8], 55);
-  b[12] = rol64(a[13], 25);
-  b[3] = rol64(a[18], 21);
-  b[19] = rol64(a[23], 56);
-  b[15] = rol64(a[4], 27);
-  b[6] = rol64(a[9], 20);
-  b[22] = rol64(a[14], 39);
-  b[13] = rol64(a[19], 8);
-  b[4] = rol64(a[24], 14);
-#pragma unroll
-  for (int y = 0; y < 5; y++)
-#pragma unroll
-    for (int x = 0; x < 5; x++)
-      a[x + 5 * y] = b[x + 5 * y] ^
-                     (~b[(x + 1) % 5 + 5 * y] & b[(x + 2) % 5 + 5 * y]);
-  a[0] ^= rc;
 }
 
-static __device__ __forceinline__ void keccak_f1600(uint64_t a[25]) {
+// the 24 rounds on the warp's lanes, in place
+static __device__ __forceinline__ void keccak_f1600_lanes(klane& a) {
+  kplan pl;
+  k_plan(pl);
 #pragma unroll 1
-  for (int i = 0; i < 24; i++) keccak_round(a, KECCAK_RC[i]);
+  for (int r = 0; r < 24; r++) {
+    klane c, t0, t1, t2, t3;
+    k_shfl(t0, a, pl.col[0]);
+    k_shfl(t1, a, pl.col[1]);
+    k_shfl(t2, a, pl.col[2]);
+    k_shfl(t3, a, pl.col[3]);
+#pragma unroll
+    for (int j = 0; j < KN; j++)
+      c.v[j] = a.v[j] ^ t0.v[j] ^ t1.v[j] ^ t2.v[j] ^ t3.v[j];
+    k_shfl(t0, c, pl.xm1);
+    k_shfl(t1, c, pl.xp1);
+#pragma unroll
+    for (int j = 0; j < KN; j++) a.v[j] ^= t0.v[j] ^ k_rol(t1.v[j], 1);
+    k_shfl(t0, a, pl.pi);
+#pragma unroll
+    for (int j = 0; j < KN; j++) t0.v[j] = k_rol(t0.v[j], pl.rot.v[j]);
+    k_shfl(t1, t0, pl.chi1);
+    k_shfl(t2, t0, pl.chi2);
+    uint64_t rc = KECCAK_RC[r];
+#pragma unroll
+    for (int j = 0; j < KN; j++)
+      a.v[j] = (t0.v[j] ^ (~t1.v[j] & t2.v[j])) ^ (k_lane(j) == 0 ? rc : 0);
+  }
 }

@@ -175,6 +175,10 @@ def _check_step(state, segs) -> None:
                 or off < 0 or off + seg.shape[0] > 200):
             raise ValueError("strobe_step: segments must be contiguous "
                              "uint8 vectors inside the state, on its device")
+    spans = sorted((off, off + seg.shape[0]) for seg, off in segs)
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError("strobe_step: segments must not overlap")
 
 
 def strobe_step(state: torch.Tensor, mask: bytes | None, segs: list,

@@ -1,7 +1,9 @@
 """The CUDA kernels' field and point arithmetic (``csrc/fq.cuh``,
-``csrc/fp25519.cuh``, ``csrc/carry.cuh``), the keccak-f[1600]
-permutation (``csrc/keccak.cuh``), the ristretto255 encode
-(``csrc/ristretto.cuh``), kernel K5's constant-time scalar
+``csrc/fp25519.cuh``, ``csrc/carry.cuh``), kernel K3's keccak-f[1600]
+permutation with one Keccak lane a warp lane (``csrc/keccak.cuh``, the
+warp's 32 lanes in a loop), kernel K4's product spread over a group of
+8 lanes (``csrc/fp25519_group.cuh``, the group's lanes in a loop) and
+its ristretto255 encode (``csrc/ristretto.cuh``), kernel K5's constant-time scalar
 multiplication by a quad of lanes (``csrc/point_msm.cuh``: the 4-way
 doubling and cached addition, the signed radix-16 recoding, the whole
 ladder, and the plain version against it bit for bit) and kernel K6's
@@ -98,7 +100,13 @@ void h_fq_from_mont(uint32_t* r, const uint32_t* x) { fq_from_mont(r, x); }
 void h_fq_from_bytes_wide(uint32_t* r, const uint8_t* b) {
   fq_from_bytes_wide(r, b);
 }
-void h_keccak_f1600(uint64_t* a) { keccak_f1600(a); }
+void h_keccak_f1600(uint64_t* a) {
+  klane k;
+  for (int t = 0; t < 32; t++) k.v[t] = a[t < 25 ? t : t - 25];
+  keccak_f1600_lanes(k);
+  for (int t = 0; t < 25; t++) a[t] = k.v[t];
+}
+void h_g_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) { g_mul(r, a, b); }
 void h_ristretto_encode(uint32_t* s, const uint32_t* p) {
   ge_t q; ge_load(q, p); ristretto_encode(s, q);
 }
@@ -449,6 +457,26 @@ def test_fq_accumulate_and_reduce(lib, op):
             out = _buf(0)
             lib.h_fq_reduce_wide(out, _buf(v, 9))
             assert _val(out) == v % Q, v
+
+
+@pytest.mark.parametrize("square", [False, True], ids=["product", "square"])
+def test_group_mul(lib, square):
+    """K4's product and squaring on a group of 8 lanes (every lane
+    computing its word, the columns gathered and carried in every lane)
+    against python ints: at 0, 1, p - 1, p, 2^255, 2^256 - 1, lazy values
+    at and above p, values whose column sum passes 2^256 before the last
+    fold, and random values; the result below 2^256 and congruent."""
+    rng = random.Random(24 + square)
+    xs = [0, 1, P - 1, P, 1 << 255, M, P + 1, 2 * P, M - 18, 38, 19,
+          M - (1 << 224)] + [rng.randrange(R) for _ in range(400)] + [
+        M - rng.randrange(1 << rng.randrange(1, 200)) for _ in range(200)]
+    ys = [M, M, P - 1, P - 1, 1 << 255, M, P + 1, 2 * P, 1, M, 38, 2] + [
+        rng.randrange(R) for _ in range(400)] + [
+        rng.choice([1, 2, 38, M]) for _ in range(200)]
+    for x, y in zip(xs, ys):
+        y = x if square else y
+        out = _op(lib, "h_g_mul", x, y)
+        assert out < R and out % P == x * y % P, (x, y)
 
 
 @pytest.mark.parametrize("seed", range(4))

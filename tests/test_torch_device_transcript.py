@@ -88,6 +88,23 @@ def test_strobe_step_plain():
     assert st.numpy().tobytes() == _host_permute(bytes(want))
 
 
+@pytest.mark.parametrize("spans", [[(30, 8), (37, 4)], [(0, 200), (199, 1)],
+                                   [(64, 32), (8, 8), (70, 1)]])
+def test_strobe_step_rejects_overlapping_segments(spans):
+    """K3's contract: no two segments of a step share a byte (the kernel
+    XORs them in with no sync between segments).  ``strobe_step`` raises
+    on overlapping segments, whatever their order, and takes adjacent
+    ones."""
+    state = torch.zeros(200, dtype=torch.uint8)
+    segs = [(torch.ones(n, dtype=torch.uint8), off) for off, n in spans]
+    with pytest.raises(ValueError, match="overlap"):
+        dt.strobe_step(state, None, segs, False)
+    assert not state.any()
+    adjacent = [(torch.ones(8, dtype=torch.uint8), off) for off in (0, 8)]
+    dt.strobe_step(state, None, adjacent, False)
+    assert state[:16].tolist() == [1] * 16
+
+
 def _ints(t):
     return fq.decode_to_ints(t.reshape(-1, 8))
 
