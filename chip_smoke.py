@@ -31,10 +31,19 @@ verified and a tampered copy rejected, each of encode and prove between
 counter resets, the first, middle and last rows of each of their B1
 launches held against the plain version, with B1 timed on the encode's
 own tables; then the prove's batched B2 launches, as counted by shape,
-replayed and timed.  Then the device prover (``SPARTAN_TPU_DEVICE_PROVER``):
-K3, one STROBE step (``csrc/keccak.cu``), against its plain version on
-1,024 random states; K4, the ristretto encode (``csrc/ristretto.cu``),
-on 4,097 points that cover every branch of ENCODE; B2 reading its
+replayed and timed.  Then an empty kernel's time a launch, in a CUDA
+graph and launched one by one (the launch floor); K3, one STROBE step
+(``csrc/keccak.cu``, one Keccak lane a warp lane), against its plain
+version on 1,024 random states in seven forms (three segments with and
+without a mask and the permutation, 16 adjacent segments, segments at
+odd offsets), timed beside the launch floor; one field product's and
+one squaring's latency on K4's group of 8 lanes beside the one-lane
+product's (``fp latency ...``); K4, the ristretto encode
+(``csrc/ristretto.cu``, 8 lanes a point), on 4,097 points that cover
+every branch of ENCODE and on the last 1, 3 and 33 of them, timed
+beside its bound, its chain floor (251 squarings and 33 products at the
+group's latencies, and 284 products at the one-lane product's) and the
+launch floor; B2 reading its
 challenge through a pointer against the by-value form at (4, 2^20),
 (2, 2^21) and (18, 2^19), in both modes that take a challenge; and the
 same 2^20 NIZK and SNARK proved again under the gate, whose bytes must
@@ -51,9 +60,10 @@ scalars and the identity point), each timed launched one by one and in
 a CUDA graph beside its bound, its chain floor and the time of its
 earlier one-thread-a-point design; K6, the
 bullet round's scalar step (``csrc/bullet_step.cu``), in every mode at
-n = 1,024, 2,048 and 4,096, the fold also at u = 1, q - 1 and 2^200; a forced K5 launch failure
-and a forced K6 build failure, each of which must raise with no plain
-version run in its place; then a host round and a device round timed at n = 2^1 ... 2^12
+n = 1,024, 2,048 and 4,096, the fold also at u = 1, q - 1 and 2^200;
+forced launch failures of K5 and K4 and forced build failures of K6
+and K3, each of which must raise with no plain version run in its
+place; then a host round and a device round timed at n = 2^1 ... 2^12
 (``bullet round n ...`` lines: the walls that set
 ``protocols/bullet.py::DEVICE_MIN``), each device round fetching once;
 the default path's launches of K5 and K6 in each prove;
@@ -802,7 +812,8 @@ def snark_main_path(dev, inst, vars_a, inputs_a) -> dict:
     spans = {k: timer.totals.get(k) for k in SNARK_SPANS}
     if min(prove_launches["row_msm"],
            prove_launches["fold_evals_by_comb"]["cubic_prod"],
-           prove_launches["point_msm"], prove_launches["bullet_step"]) <= 0:
+           prove_launches["point_msm"], prove_launches["bullet_step"],
+           prove_launches["ristretto_compress"]) <= 0:
         raise AssertionError(f"a kernel never launched in prove: "
                              f"{prove_launches}")
 
@@ -979,7 +990,8 @@ def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
     mallocs = new_segments(mem0)
     phases = {k: timer.records[k] for k in NIZK_SPANS}
     if min(launches["row_msm"], launches["fold_evals"],
-           launches["point_msm"], launches["bullet_step"]) <= 0:
+           launches["point_msm"], launches["bullet_step"],
+           launches["ristretto_compress"]) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
 
     blob = ser.nizk_to_bytes(nizk)
@@ -1333,11 +1345,10 @@ def product_latency_ns(dev) -> float:
     return statistics.median(per)
 
 
-def chain_latency_ns(dev, layout: int, square: int) -> float:
-    """One field product's (``square``: squaring's) latency mod p in a
-    layout of csrc/ristretto.cu's fp_chain_kernel (0: a group of 8 lanes,
-    1: one lane, 2: one lane on 10 limbs): a chain of 2^14 less one of 0,
-    over 2^14; medians of 5."""
+def group_latency_ns(dev, square: int) -> float:
+    """One product's (``square``: squaring's) latency mod p on a group of
+    8 lanes (csrc/ristretto.cu's g_mul_chain_kernel): a chain of 2^14
+    less one of 0, over 2^14; medians of 5."""
     import statistics
 
     import torch
@@ -1350,9 +1361,9 @@ def chain_latency_ns(dev, layout: int, square: int) -> float:
     steps = 1 << 14
 
     def run(k):
-        rc = lib.fp_chain_launch(xy.data_ptr(), k, layout, square,
-                                 _build.stream_handle(dev))
-        _build.check(rc, "fp_chain")
+        rc = lib.g_mul_chain_launch(xy.data_ptr(), k, square,
+                                    _build.stream_handle(dev))
+        _build.check(rc, "g_mul_chain")
 
     per = [(cuda_ms(lambda: run(steps), 3) - cuda_ms(lambda: run(0), 3))
            / steps * 1e6 for _ in range(5)]
@@ -1378,25 +1389,12 @@ def encode_latencies(dev) -> dict:
     """K4's product and squaring latencies on a group of 8 lanes beside
     the one-lane fp_mul's (csrc/point_msm.cu)."""
     lat = {"fp_mul_one_lane_ns": product_latency_ns(dev),
-           "group_mul_ns": chain_latency_ns(dev, 0, 0),
-           "group_sqr_ns": chain_latency_ns(dev, 0, 1)}
+           "group_mul_ns": group_latency_ns(dev, 0),
+           "group_sqr_ns": group_latency_ns(dev, 1)}
     log(f"fp latency: one-lane fp_mul {lat['fp_mul_one_lane_ns']:.1f} ns; "
         f"a group of 8 lanes: product {lat['group_mul_ns']:.1f} ns, "
         f"squaring {lat['group_sqr_ns']:.1f} ns")
     return lat
-
-
-def fp_layout_probe(dev) -> dict:
-    """The candidate layouts' product and squaring latencies, beside the
-    one-lane fp_mul of csrc/point_msm.cu."""
-    out = {"fp_mul_one_lane_ns": product_latency_ns(dev)}
-    for name, layout in (("group8", 0), ("one_lane", 1), ("limbs10", 2)):
-        for sq in (0, 1):
-            out[f"{name}_{'sqr' if sq else 'mul'}_ns"] = chain_latency_ns(
-                dev, layout, sq)
-    out["launch_floor"] = launch_floor_ms(dev)
-    log("fp layout probe " + json.dumps(out))
-    return out
 
 
 def divstep_latency_ns(dev, wide: int) -> float:

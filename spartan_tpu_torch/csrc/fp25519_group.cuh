@@ -12,10 +12,11 @@
 // stages of selects.  Then the group exchanges its columns: 16 shuffles
 // (the low and the high word of each S_k) give every lane all of them,
 // and every lane adds them up in one 8-word carry chain, word k + 1
-// taking S_k >> 32 (word 0 taking 38 times S_7 >> 32), then folds the
-// carry out of word 7 as fp25519.cuh does.  So a product's chain is a few
-// dependent multiply-adds, one round of shuffles and 17 carry steps, not
-// the 8-row carry chain of a one-lane product.
+// taking S_k >> 32 (word 0 taking 38 times S_7 >> 32), then adds 38 for
+// a carry out of word 7, which goes on past word 0 only in a rare branch.
+// So a product's chain is a few dependent multiply-adds, one round of
+// shuffles and 10 carry steps, not the 8-row carry chain of a one-lane
+// product.
 //
 // The same source runs on the host (no __CUDA_ARCH__: nvcc's host pass,
 // and g++ in tests/test_torch_csrc.py), where a glane holds the 8 lanes of
@@ -109,7 +110,17 @@ static __device__ __forceinline__ void g_mul(uint32_t r[8],
   r[0] = madlo_cc(h[7], 38u, l[0]);
 #pragma unroll
   for (int j = 1; j < 8; j++) r[j] = addc_cc(l[j], h[j - 1]);
-  fp_fold38(r, addc(0, 0));
+  // past 2^256: add 38 to word 0.  It carries on only when word 0 was
+  // within 38 of 2^32, a rare branch.  The sum was below 2^256 + 2^235,
+  // so word 7 is 0 by then and the carry stops below it.
+  uint32_t r0 = r[0] + 38u * addc(0, 0);
+  if (r0 < r[0]) {
+    r[1] = add_cc(r[1], 1u);
+#pragma unroll
+    for (int j = 2; j < 7; j++) r[j] = addc_cc(r[j], 0);
+    r[7] = addc(r[7], 0);
+  }
+  r[0] = r0;
 }
 
 // r = a^(2^n) (r may alias a)

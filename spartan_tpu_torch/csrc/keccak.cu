@@ -15,7 +15,7 @@
 // Bound on this card: latency.  The bytes are 400 and a few segments;
 // the permutation is 24 dependent rounds of a few dependent 64-bit ALU
 // steps.  Design: one warp, one Keccak lane a warp lane (keccak.cuh), so
-// a round is four rounds of shuffles and a few ALU steps a lane.  Lane t
+// a round is three rounds of shuffles and a few ALU steps a lane.  Lane t
 // takes its 8 state bytes XOR its word of the mask into shared memory;
 // the lanes XOR the segments' bytes in (the segments do not overlap, so
 // no byte is written twice and one __syncwarp after all of them is

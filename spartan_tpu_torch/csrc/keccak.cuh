@@ -4,10 +4,13 @@
 //   theta: the column parity C[x] from the four other lanes of the column
 //          (shuffles), then D[x] = C[x - 1] ^ rol(C[x + 1], 1) from the
 //          neighbouring columns' lanes of the same row (shuffles);
-//   rho and pi: one shuffle from the lane's source and a rotate by its
-//          own amount (both from per-lane tables);
-//   chi:   A = B ^ (~B[x + 1] & B[x + 2]), two shuffles;
+//   rho, pi and chi: A = B ^ (~B[x + 1] & B[x + 2]), where B of a lane
+//          is its pi source's word rotated by its own amount (per-lane
+//          tables): three shuffles of the theta output at once, from the
+//          sources of the lane and of its two chi neighbours, each then
+//          rotated by that lane's amount;
 //   iota:  lane 0 takes the round constant.
+// So a round is three rounds of shuffles, each a few ALU steps apart.
 // Lanes 25-31 mirror lanes 0-6 so that every lane of the warp takes part
 // in the full-mask shuffles; nobody reads them.
 //
@@ -79,9 +82,10 @@ static __device__ __forceinline__ uint64_t k_rol(uint64_t v, uint32_t n) {
 }
 
 // each lane's sources: the other four lanes of its column, the two
-// neighbouring columns, the rho-pi source and the two chi operands
+// neighbouring columns, and the rho-pi sources of itself and of its two
+// chi neighbours with their rotations
 struct kplan {
-  kidx col[4], xm1, xp1, pi, chi1, chi2, rot;
+  kidx col[4], xm1, xp1, pi[3], rot[3];
 };
 
 static __device__ __forceinline__ void k_plan(kplan& pl) {
@@ -93,10 +97,12 @@ static __device__ __forceinline__ void k_plan(kplan& pl) {
     for (int m = 0; m < 4; m++) pl.col[m].v[j] = x + 5 * ((y + 1 + m) % 5);
     pl.xm1.v[j] = (x + 4) % 5 + 5 * y;
     pl.xp1.v[j] = (x + 1) % 5 + 5 * y;
-    pl.pi.v[j] = KECCAK_PI_SRC[l];
-    pl.rot.v[j] = KECCAK_ROTN[l];
-    pl.chi1.v[j] = (x + 1) % 5 + 5 * y;
-    pl.chi2.v[j] = (x + 2) % 5 + 5 * y;
+#pragma unroll
+    for (int m = 0; m < 3; m++) {
+      uint32_t b = (x + m) % 5 + 5 * y;  // B of this lane, x + 1, x + 2
+      pl.pi[m].v[j] = KECCAK_PI_SRC[b];
+      pl.rot[m].v[j] = KECCAK_ROTN[b];
+    }
   }
 }
 
@@ -118,11 +124,15 @@ static __device__ __forceinline__ void keccak_f1600_lanes(klane& a) {
     k_shfl(t1, c, pl.xp1);
 #pragma unroll
     for (int j = 0; j < KN; j++) a.v[j] ^= t0.v[j] ^ k_rol(t1.v[j], 1);
-    k_shfl(t0, a, pl.pi);
+    k_shfl(t0, a, pl.pi[0]);
+    k_shfl(t1, a, pl.pi[1]);
+    k_shfl(t2, a, pl.pi[2]);
 #pragma unroll
-    for (int j = 0; j < KN; j++) t0.v[j] = k_rol(t0.v[j], pl.rot.v[j]);
-    k_shfl(t1, t0, pl.chi1);
-    k_shfl(t2, t0, pl.chi2);
+    for (int j = 0; j < KN; j++) {
+      t0.v[j] = k_rol(t0.v[j], pl.rot[0].v[j]);
+      t1.v[j] = k_rol(t1.v[j], pl.rot[1].v[j]);
+      t2.v[j] = k_rol(t2.v[j], pl.rot[2].v[j]);
+    }
     uint64_t rc = KECCAK_RC[r];
 #pragma unroll
     for (int j = 0; j < KN; j++)

@@ -6,7 +6,7 @@
 // Pedersen commitments on the card, so the transcript can absorb them
 // with no fetch.
 //
-// Bound on this card: the launch's dependent chain.  One encode is 284
+// Bound on this card: operations, in principle.  One encode is 284
 // field products (the inverse square root's 251 squarings and 11
 // products, 22 more around it), 72 wide 32-bit multiply-adds each; the
 // bytes (128 in, 32 out a point) are nothing beside them, and the
@@ -15,7 +15,7 @@
 // a group of 8 lanes takes a point and spreads every product over its
 // lanes (fp25519_group.cuh), lane k computing word k.  Lanes past the
 // last point work on the last point and store nothing, so every lane of
-// a warp takes part in the group's shuffles and ballots.  The plain
+// a warp takes part in the group's shuffles.  The plain
 // PyTorch twin is spartan_tpu_torch/curve/ristretto.py::compress_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,146 +41,25 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-// ---------------------------------------------------------------------
-// Latency probes of candidate product layouts (one dependent chain each)
-// ---------------------------------------------------------------------
-
-// (a) a dedicated one-lane squaring: 28 cross products doubled plus the
-// 8 squares, then fp_mul's 38-fold
-static __device__ __forceinline__ void fp_sqr(uint32_t r[8],
-                                              const uint32_t a[8]) {
-  uint32_t t[16];
-#pragma unroll
-  for (int j = 0; j < 16; j++) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < 7; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = i + 1; j < 8; j++) {
-      uint64_t s = (uint64_t)a[i] * a[j] + t[i + j] + c;
-      t[i + j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    t[i + 8] = (uint32_t)c;
-  }
-#pragma unroll
-  for (int j = 15; j > 0; j--) t[j] = (t[j] << 1) | (t[j - 1] >> 31);
-  t[0] <<= 1;
-  t[0] = add_cc(t[0], mullo(a[0], a[0]));
-  t[1] = addc_cc(t[1], mulhi(a[0], a[0]));
-#pragma unroll
-  for (int i = 1; i < 7; i++) {
-    t[2 * i] = addc_cc(t[2 * i], mullo(a[i], a[i]));
-    t[2 * i + 1] = addc_cc(t[2 * i + 1], mulhi(a[i], a[i]));
-  }
-  t[14] = addc_cc(t[14], mullo(a[7], a[7]));
-  t[15] = addc(t[15], mulhi(a[7], a[7]));
-  r[0] = madlo_cc(t[8], 38u, t[0]);
-#pragma unroll
-  for (int j = 1; j < 8; j++) r[j] = madloc_cc(t[8 + j], 38u, t[j]);
-  uint32_t c = addc(0, 0);
-  r[1] = madhi_cc(t[8], 38u, r[1]);
-#pragma unroll
-  for (int j = 2; j < 8; j++) r[j] = madhic_cc(t[7 + j], 38u, r[j]);
-  c = madhic(t[15], 38u, c);
-  fp_fold38(r, c);
-}
-
-// (c) ref10's unsaturated radix 2^25.5 on one lane: 10 limbs, 64-bit
-// column sums, one carry pass
-static __device__ __forceinline__ void fe10_carry(uint32_t h[10],
-                                                  uint64_t c[10]) {
-  const int order[12] = {0, 4, 1, 5, 2, 6, 3, 7, 4, 8, 9, 0};
-#pragma unroll
-  for (int n = 0; n < 12; n++) {
-    int i = order[n], w = (i & 1) ? 25 : 26;
-    uint64_t carry = c[i] >> w;
-    c[i] &= (1ull << w) - 1;
-    if (i == 9)
-      c[0] += carry * 19;
-    else
-      c[i + 1] += carry;
-  }
-#pragma unroll
-  for (int i = 0; i < 10; i++) h[i] = (uint32_t)c[i];
-}
-
-static __device__ __forceinline__ void fe10_mul(uint32_t h[10],
-                                                const uint32_t f[10],
-                                                const uint32_t g[10]) {
-  uint64_t c[10];
-  uint32_t g19[10];
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    c[i] = 0;
-    g19[i] = 19 * g[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 10; i++)
-#pragma unroll
-    for (int j = 0; j < 10; j++) {
-      uint32_t fi = ((i & j & 1) ? 2 : 1) * f[i];
-      c[(i + j) % 10] += (uint64_t)fi * (i + j >= 10 ? g19[j] : g[j]);
-    }
-  fe10_carry(h, c);
-}
-
-static __device__ __forceinline__ void fe10_sq(uint32_t h[10],
-                                               const uint32_t f[10]) {
-  uint64_t c[10];
-#pragma unroll
-  for (int i = 0; i < 10; i++) c[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 10; i++)
-#pragma unroll
-    for (int j = i; j < 10; j++) {
-      uint32_t fi = ((i < j ? 2 : 1) * ((i & j & 1) ? 2 : 1)) * f[i];
-      uint32_t fj = i + j >= 10 ? 19 * f[j] : f[j];
-      c[(i + j) % 10] += (uint64_t)fi * fj;
-    }
-  fe10_carry(h, c);
-}
-
-// xy: (16,) words, x in 0..7, y in 8..15; the chain's end goes back to
-// xy[0..9].  layout 0: the group of 8 (32 threads: 4 groups alike);
-// 1: one lane, fp_mul or (a) fp_sqr; 2: one lane, (c) 10 limbs
-__global__ void fp_chain_kernel(uint32_t* __restrict__ xy, int steps,
-                                int layout, int square) {
+// one group's dependent chain of `steps` products x = x * y (square:
+// x = x * x), a warp of 4 groups alike; xy: x in words 0..7, y in 8..15,
+// the chain's end back in 0..7.  chip_smoke.py times it: the latency of
+// a product and of a squaring on the group, the unit of K4's chain floor
+__global__ void g_mul_chain_kernel(uint32_t* __restrict__ xy, int steps,
+                                   int square) {
   uint32_t x[8], y[8];
 #pragma unroll
   for (int j = 0; j < 8; j++) {
     x[j] = xy[j];
     y[j] = xy[8 + j];
   }
-  if (layout == 0) {
-    if (square)
-      for (int i = 0; i < steps; i++) g_mul(x, x, x);
-    else
-      for (int i = 0; i < steps; i++) g_mul(x, x, y);
-    if (threadIdx.x == 0)
-#pragma unroll
-      for (int j = 0; j < 8; j++) xy[j] = x[j];
-  } else if (layout == 1) {
-    if (square)
-      for (int i = 0; i < steps; i++) fp_sqr(x, x);
-    else
-      for (int i = 0; i < steps; i++) fp_mul(x, x, y);
+  if (square)
+    for (int i = 0; i < steps; i++) g_mul(x, x, x);
+  else
+    for (int i = 0; i < steps; i++) g_mul(x, x, y);
+  if (threadIdx.x == 0)
 #pragma unroll
     for (int j = 0; j < 8; j++) xy[j] = x[j];
-  } else {
-    uint32_t f[10], g[10];
-#pragma unroll
-    for (int i = 0; i < 10; i++) {
-      f[i] = (x[i % 8] >> (3 * i)) & 0x1ffffffu;
-      g[i] = (y[i % 8] >> (3 * i)) & 0x1ffffffu;
-    }
-    if (square)
-      for (int i = 0; i < steps; i++) fe10_sq(f, f);
-    else
-      for (int i = 0; i < steps; i++) fe10_mul(f, f, g);
-#pragma unroll
-    for (int i = 0; i < 10; i++) xy[i] = f[i];
-  }
 }
 
 __global__ void empty_kernel() {}
@@ -196,12 +75,11 @@ extern "C" int ristretto_encode_launch(const void* pts, void* out, int k,
   return (int)cudaGetLastError();
 }
 
-extern "C" int fp_chain_launch(void* xy, int steps, int layout, int square,
-                               void* stream) {
-  if (steps < 0 || layout < 0 || layout > 2)
-    return (int)cudaErrorInvalidValue;
-  fp_chain_kernel<<<1, layout == 0 ? 32 : 1, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)xy, steps, layout, square);
+extern "C" int g_mul_chain_launch(void* xy, int steps, int square,
+                                  void* stream) {
+  if (steps < 0) return (int)cudaErrorInvalidValue;
+  g_mul_chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)xy,
+                                                          steps, square);
   return (int)cudaGetLastError();
 }
 

@@ -77,9 +77,8 @@ def _declare(lib) -> None:
     p = ctypes.c_void_p
     lib.ristretto_encode_launch.argtypes = [p, p, ctypes.c_int, p]
     lib.ristretto_encode_launch.restype = ctypes.c_int
-    lib.fp_chain_launch.argtypes = [p, ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_int, p]
-    lib.fp_chain_launch.restype = ctypes.c_int
+    lib.g_mul_chain_launch.argtypes = [p, ctypes.c_int, ctypes.c_int, p]
+    lib.g_mul_chain_launch.restype = ctypes.c_int
     lib.empty_launch.argtypes = [p]
     lib.empty_launch.restype = ctypes.c_int
 

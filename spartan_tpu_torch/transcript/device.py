@@ -169,13 +169,16 @@ def _check_step(state, segs) -> None:
                          f"{tuple(state.shape)} {state.dtype}")
     if len(segs) > MAX_SEGS:
         raise ValueError(f"strobe_step: at most {MAX_SEGS} segments")
+    spans = []
     for seg, off in segs:
+        end = off + seg.shape[0]
         if (seg.dim() != 1 or seg.dtype != torch.uint8
                 or seg.device != state.device or not seg.is_contiguous()
-                or off < 0 or off + seg.shape[0] > 200):
+                or off < 0 or end > 200):
             raise ValueError("strobe_step: segments must be contiguous "
                              "uint8 vectors inside the state, on its device")
-    spans = sorted((off, off + seg.shape[0]) for seg, off in segs)
+        spans.append((off, end))
+    spans.sort()
     for (_, end), (start, _) in zip(spans, spans[1:]):
         if start < end:
             raise ValueError("strobe_step: segments must not overlap")
@@ -191,13 +194,9 @@ def strobe_step(state: torch.Tensor, mask: bytes | None, segs: list,
     if dev.type != "cuda":
         raise ValueError(f"strobe_step: unsupported device {dev}")
     lib = _build.load("keccak", _declare)
-    m = _Mask()
-    if mask is not None:
-        ctypes.memmove(m.b, bytes(mask), 200)
-    s = _Segs()
-    s.n = len(segs)
-    for k, (seg, off) in enumerate(segs):
-        s.s[k].src, s.s[k].dst, s.s[k].len = seg.data_ptr(), off, seg.shape[0]
+    m = _Mask() if mask is None else _Mask.from_buffer_copy(mask)
+    s = _Segs((_Seg * MAX_SEGS)(*[_Seg(seg.data_ptr(), off, seg.shape[0])
+                                  for seg, off in segs]), len(segs))
     rc = lib.strobe_step_launch(state.data_ptr(), m, s, int(permute),
                                 _build.stream_handle(dev))
     strobe_step.launches += 1

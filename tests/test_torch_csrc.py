@@ -464,13 +464,16 @@ def test_group_mul(lib, square):
     """K4's product and squaring on a group of 8 lanes (every lane
     computing its word, the columns gathered and carried in every lane)
     against python ints: at 0, 1, p - 1, p, 2^255, 2^256 - 1, lazy values
-    at and above p, values whose column sum passes 2^256 before the last
-    fold, and random values; the result below 2^256 and congruent."""
+    at and above p, values whose column sum passes 2^256 ((2^255 - 1) *
+    2^32 also carries out of word 0 when 38 is added back), and random
+    values; the result below 2^256 and congruent."""
     rng = random.Random(24 + square)
     xs = [0, 1, P - 1, P, 1 << 255, M, P + 1, 2 * P, M - 18, 38, 19,
-          M - (1 << 224)] + [rng.randrange(R) for _ in range(400)] + [
+          M - (1 << 224), (1 << 255) - 1] + [
+        rng.randrange(R) for _ in range(400)] + [
         M - rng.randrange(1 << rng.randrange(1, 200)) for _ in range(200)]
-    ys = [M, M, P - 1, P - 1, 1 << 255, M, P + 1, 2 * P, 1, M, 38, 2] + [
+    ys = [M, M, P - 1, P - 1, 1 << 255, M, P + 1, 2 * P, 1, M, 38, 2,
+          1 << 32] + [
         rng.randrange(R) for _ in range(400)] + [
         rng.choice([1, 2, 38, M]) for _ in range(200)]
     for x, y in zip(xs, ys):

@@ -10,6 +10,8 @@ configures JAX:
 
 Everything is integer arithmetic: the kernel and the plain version agree
 bit for bit (tolerance zero).  Shapes are those of ``chip_smoke.py``,
+K4 (``curve/ristretto.py``) also at 1-4,097 points with lazy coordinates,
+K3 (``transcript/device.py``) also with 16 segments and at odd offsets,
 and for K5 (``curve/point_msm.py``) also groups that are no power of
 two; K5 and K6 (``ff/bullet_kernel.py``) run on two streams at once too.
 The golden NIZK and SNARK run with the default bullet rounds and with
@@ -229,6 +231,83 @@ def test_compress_kernel_vs_plain(dev):
     torch.cuda.synchronize()
     assert dri.compress.launches == before + 1
     assert torch.equal(got, dri.compress_plain(p))
+
+
+def _encode_points(n, dev, lazy):
+    """(n, 4, 8) int32 points on ``dev``: the identity, then k * 12345 B
+    for k = 1 ... n - 1 in projective form (Z != 1); with ``lazy`` every
+    coordinate below 2^256 - p has p added."""
+    from spartan_tpu_torch.core import edwards as hed
+    from spartan_tpu_torch.core.field import P25519 as P
+    from spartan_tpu_torch.curve import edwards as ed
+
+    step = hed.BASEPOINT.mul(12345)
+    pts, acc = [hed.Point.identity()], step
+    while len(pts) < n:
+        pts.append(acc)
+        acc = acc.add(step)
+    t = ed.stack(ed.from_host(pts))
+    if lazy:
+        vals = [v + P if v + P < 1 << 256 else v
+                for v in limb.limbs_to_ints(t.reshape(-1, 8))]
+        t = limb.ints_to_limbs(vals).reshape(t.shape)
+    return t.to(dev)
+
+
+@pytest.mark.parametrize("lazy", [False, True], ids=["canonical", "lazy"])
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 33, 129, 4097])
+def test_compress_kernel_sizes(dev, n, lazy):
+    """K4 (8 lanes a point, 16 points a block) on partial groups and
+    blocks, the identity first: equal to the plain version, one launch."""
+    from spartan_tpu_torch.curve import edwards as ed
+    from spartan_tpu_torch.curve import ristretto as dri
+
+    p = ed.unstack(_encode_points(n, dev, lazy))
+    before = dri.compress.launches
+    got = dri.compress(p)
+    torch.cuda.synchronize()
+    assert dri.compress.launches == before + 1
+    assert torch.equal(got, dri.compress_plain(p))
+
+
+# (offset, length) of each device segment: 16 adjacent ones (the most a
+# step takes) ending at byte 199; segments at odd offsets, adjacent and
+# apart, the last ending at byte 199; none
+STROBE_SEGS = {
+    "sixteen": [(64 + sum(range(1, n)), n) for n in range(1, 17)],
+    "odd": [(1, 6), (7, 24), (31, 2), (35, 100), (135, 65)],
+    "adjacent": [(0, 100), (100, 100)],
+    "none": [],
+}
+
+
+@pytest.mark.parametrize("form", ["mask+permute", "mask only",
+                                  "permute only"])
+@pytest.mark.parametrize("segs", list(STROBE_SEGS))
+def test_strobe_step_kernel_segments(dev, segs, form):
+    """K3 (one Keccak lane a warp lane) with each segment set of
+    STROBE_SEGS, with a mask and the permutation, with a mask only and
+    with the permutation only: equal to the plain version on 8 random
+    states."""
+    from spartan_tpu_torch.transcript import device as dt
+
+    g = torch.Generator().manual_seed(len(STROBE_SEGS[segs]) + len(form))
+    mask = None if form == "permute only" else bytes(
+        torch.randint(0, 256, (200,), generator=g).tolist())
+    permute = form != "mask only"
+    data = [(torch.randint(0, 256, (n,), generator=g,
+                           dtype=torch.int64).to(torch.uint8), off)
+            for off, n in STROBE_SEGS[segs]]
+    for _ in range(8):
+        st = torch.randint(0, 256, (200,), generator=g,
+                           dtype=torch.int64).to(torch.uint8)
+        want = st.clone()
+        dt.strobe_step_plain(want, mask, data, permute)
+        got = st.to(dev)
+        dt.strobe_step(got, mask, [(d.to(dev), o) for d, o in data],
+                       permute)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("ntab,shape", [(4, (4096,)), (2, (4096,)),
