@@ -16,11 +16,11 @@
 // the permutation is 24 dependent rounds of a few dependent 64-bit ALU
 // steps.  Design: one warp, one Keccak lane a warp lane (keccak.cuh), so
 // a round is three rounds of shuffles and a few ALU steps a lane.  Lane t
-// takes its 8 state bytes XOR its word of the mask into shared memory;
-// the lanes XOR the segments' bytes in (the segments do not overlap, so
-// no byte is written twice and one __syncwarp after all of them is
-// enough); each lane then runs the rounds on its word and writes its 8
-// bytes back.  The plain PyTorch twin is
+// builds its word from its 8 state bytes, its word of the mask and the
+// bytes of the segments that fall on them, all loads issued at once (the
+// segments do not overlap, so a byte takes at most one segment byte),
+// runs the rounds and writes its 8 bytes back: no shared memory and no
+// sync.  The plain PyTorch twin is
 // spartan_tpu_torch/transcript/device.py::strobe_step_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,26 +53,34 @@ struct segs_t {
 __global__ void __launch_bounds__(32)
     strobe_step_kernel(uint8_t* __restrict__ state, mask_words_t mask,
                        segs_t segs, int permute) {
-  __shared__ uint64_t sh[25];
-  int t = threadIdx.x;
-  if (t < 25) {
-    uint64_t w = 0;
+  int t = threadIdx.x, l = t < 25 ? t : t - 25, base = 8 * l;
+  // lane l's word: its 8 state bytes, its mask word and the segment bytes
+  // that fall on it (at most one segment a byte), every load issued
+  // before any is used
+  uint8_t b[8], v[MAX_SEGS][8];
 #pragma unroll
-    for (int j = 0; j < 8; j++) w |= (uint64_t)state[8 * t + j] << (8 * j);
-    sh[t] = w ^ mask.w[t];
+  for (int j = 0; j < 8; j++) b[j] = state[base + j];
+#pragma unroll
+  for (int k = 0; k < MAX_SEGS; k++) {
+    int i0 = base - segs.s[k].dst, n = k < segs.n ? segs.s[k].len : 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++)
+      v[k][j] = i0 + j >= 0 && i0 + j < n ? segs.s[k].src[i0 + j] : 0;
   }
-  __syncwarp();
-  uint8_t* bytes = reinterpret_cast<uint8_t*>(sh);
-  for (int k = 0; k < segs.n; k++)
-    for (int i = t; i < segs.s[k].len; i += 32)
-      bytes[segs.s[k].dst + i] ^= segs.s[k].src[i];
-  __syncwarp();
+  uint64_t w = mask.w[l];
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    uint8_t x = b[j];
+#pragma unroll
+    for (int k = 0; k < MAX_SEGS; k++) x ^= v[k][j];
+    w ^= (uint64_t)x << (8 * j);
+  }
   klane a;
-  a.v[0] = sh[t < 25 ? t : t - 25];
+  a.v[0] = w;
   if (permute) keccak_f1600_lanes(a);
   if (t < 25)
 #pragma unroll
-    for (int j = 0; j < 8; j++) state[8 * t + j] = (uint8_t)(a.v[0] >> (8 * j));
+    for (int j = 0; j < 8; j++) state[base + j] = (uint8_t)(a.v[0] >> (8 * j));
 }
 
 // state: 200 bytes on the device, updated in place; segs.n <= MAX_SEGS,
