@@ -17,9 +17,10 @@
 // steps.  Design: one warp, one Keccak lane a warp lane (keccak.cuh), so
 // a round is three rounds of shuffles and a few ALU steps a lane.  Lane t
 // builds its word from its 8 state bytes, its word of the mask and the
-// bytes of the segments that fall on them, all loads issued at once (the
-// segments do not overlap, so a byte takes at most one segment byte),
-// runs the rounds and writes its 8 bytes back: no shared memory and no
+// bytes of the segments that fall on them: a scan of the segments by
+// compares finds each byte's source (the segments do not overlap, so a
+// byte takes at most one segment byte), then its 16 loads go out together;
+// it runs the rounds and writes its 8 bytes back.  No shared memory, no
 // sync.  The plain PyTorch twin is
 // spartan_tpu_torch/transcript/device.py::strobe_step_plain.
 #include <cuda_runtime.h>
@@ -54,25 +55,30 @@ __global__ void __launch_bounds__(32)
     strobe_step_kernel(uint8_t* __restrict__ state, mask_words_t mask,
                        segs_t segs, int permute) {
   int t = threadIdx.x, l = t < 25 ? t : t - 25, base = 8 * l;
-  // lane l's word: its 8 state bytes, its mask word and the segment bytes
-  // that fall on it (at most one segment a byte), every load issued
-  // before any is used
-  uint8_t b[8], v[MAX_SEGS][8];
+  // for each of lane l's 8 bytes, the segment byte that falls on it (the
+  // segments do not overlap): found by compares alone, so that the loads
+  // below are issued together
+  const uint8_t* src[8];
+  bool hit[8];
 #pragma unroll
-  for (int j = 0; j < 8; j++) b[j] = state[base + j];
+  for (int j = 0; j < 8; j++) {
+    src[j] = state;
+    hit[j] = false;
+  }
+  for (int k = 0; k < segs.n; k++) {
+    int i0 = base - segs.s[k].dst, n = segs.s[k].len;
 #pragma unroll
-  for (int k = 0; k < MAX_SEGS; k++) {
-    int i0 = base - segs.s[k].dst, n = k < segs.n ? segs.s[k].len : 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++)
-      v[k][j] = i0 + j >= 0 && i0 + j < n ? segs.s[k].src[i0 + j] : 0;
+    for (int j = 0; j < 8; j++) {
+      bool in = (unsigned)(i0 + j) < (unsigned)n;
+      src[j] = in ? segs.s[k].src + i0 + j : src[j];
+      hit[j] |= in;
+    }
   }
   uint64_t w = mask.w[l];
 #pragma unroll
   for (int j = 0; j < 8; j++) {
-    uint8_t x = b[j];
-#pragma unroll
-    for (int k = 0; k < MAX_SEGS; k++) x ^= v[k][j];
+    uint8_t x = state[base + j];
+    if (hit[j]) x ^= *src[j];
     w ^= (uint64_t)x << (8 * j);
   }
   klane a;

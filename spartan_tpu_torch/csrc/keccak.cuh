@@ -77,8 +77,21 @@ static __device__ __forceinline__ void k_shfl(klane& r, const klane& x,
 #endif
 }
 
+// v rotated left by n < 64: on the device a swap of the halves for n >= 32
+// and two funnel shifts
 static __device__ __forceinline__ uint64_t k_rol(uint64_t v, uint32_t n) {
+#if defined(__CUDA_ARCH__)
+  uint32_t lo = (uint32_t)v, hi = (uint32_t)(v >> 32);
+  if (n & 32) {
+    uint32_t s = lo;
+    lo = hi;
+    hi = s;
+  }
+  return ((uint64_t)__funnelshift_l(lo, hi, n) << 32) |
+         __funnelshift_l(hi, lo, n);
+#else
   return (v << n) | (v >> ((64 - n) & 63));
+#endif
 }
 
 // each lane's sources: the other four lanes of its column, the two

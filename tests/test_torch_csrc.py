@@ -49,6 +49,7 @@ SHIM = r"""
 #include <stdint.h>
 #define __device__
 #define __forceinline__ inline
+#define __noinline__
 #define __constant__
 struct uint4 { uint32_t x, y, z, w; };
 static inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z,
