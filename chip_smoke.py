@@ -1062,9 +1062,9 @@ def compress_bound(k: int) -> dict:
                 bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
-# K3's segment sets beyond the three above: 16 adjacent segments (the
-# most a step takes) ending at byte 199, and segments at odd offsets,
-# adjacent and apart, the last ending at byte 199; as (offset, length)
+# K3's segment sets, as (offset, length): three segments, 16 adjacent
+# ones (the most a step takes) ending at byte 199, and segments at odd
+# offsets, adjacent and apart, the last ending at byte 199
 K3_SEG_SETS = {
     "three": [(8, 32), (60, 64), (193, 7)],
     "sixteen": [(64 + sum(range(1, n)), n) for n in range(1, 17)],
@@ -1146,7 +1146,8 @@ def encode_branch(pt) -> tuple[bool, bool]:
 def check_compress(dev, gen, lat: dict, floor: dict) -> dict:
     """K4 against its plain version on K4_POINTS random points (s * B,
     made by B1), the identity, and points of every branch, and on the
-    first K4_SIZES of them (partial groups and blocks); timed at the ZK
+    last K4_SIZES of them (partial groups and blocks, the identity
+    last); timed at the ZK
     rounds' two points and at K4_POINTS + 1, beside its bound, its chain
     floor at the group's product and squaring latencies ``lat`` and at
     the one-lane product's, and the launch floor ``floor``."""
@@ -1200,7 +1201,8 @@ def check_compress(dev, gen, lat: dict, floor: dict) -> dict:
         f"{lat['group_mul_ns']:.1f} ns on a group of 8 lanes; "
         f"{one_lane_ms:.4f} ms at the one-lane product's "
         f"{lat['fp_mul_one_lane_ns']:.1f} ns), an empty kernel "
-        f"{floor['graph_ms']:.4f} ms in a graph, plain {plain_ms:.1f} ms; "
+        f"{floor['graph_ms']:.4f} ms in a graph ({floor['eager_ms']:.4f} "
+        f"ms one by one), plain {plain_ms:.1f} ms; "
         f"{K4_POINTS + 1} points {ms_all:.4f} ms, bound "
         f"{bound_all['bound_ms']:.4f} ms ({bound_all['bound_by']}), plain "
         f"{plain_all_ms:.1f} ms")

@@ -6,12 +6,12 @@
 // Pedersen commitments on the card, so the transcript can absorb them
 // with no fetch.
 //
-// Bound on this card: operations, in principle.  One encode is 284
-// field products (the inverse square root's 251 squarings and 11
-// products, 22 more around it), 72 wide 32-bit multiply-adds each; the
-// bytes (128 in, 32 out a point) are nothing beside them, and the
-// launches of the path hold 1 or 2 points, so the time is the chain of
-// 284 dependent products.  The design shortens each product's latency:
+// Bound on this card: operations.  One encode is 284 field products (the
+// inverse square root's 251 squarings and 11 products, 22 more around
+// it), 72 wide 32-bit multiply-adds each; the bytes (128 in, 32 out a
+// point) are nothing beside them.  But the path's launches hold 1 or 2
+// points, so the time is the chain of 284 dependent products, far above
+// the bound, and the design shortens each product's latency:
 // a group of 8 lanes takes a point and spreads every product over its
 // lanes (fp25519_group.cuh), lane k computing word k.  Lanes past the
 // last point work on the last point and store nothing, so every lane of

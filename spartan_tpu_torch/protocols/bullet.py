@@ -46,7 +46,7 @@ from ..utils.errors import ProofVerifyError
 # ("bullet round n ..." at n = 2^1 ... 2^12, PERF.md section 6); on the
 # CPU the kernels' plain versions lose to the native host rounds at every
 # size.
-DEVICE_MIN = {"cuda": 8, "cpu": math.inf}
+DEVICE_MIN = {"cuda": 4, "cpu": math.inf}
 
 
 @functools.lru_cache(maxsize=32)
