@@ -69,11 +69,21 @@ place; then a host round and a device round timed at n = 2^1 ... 2^12
 the default path's launches of K5 and K6 in each prove;
 and after the default path's 2^20 NIZK and SNARK (now with device
 rounds) both proved again in the same process with every round on the
-host (``host_rounds {...}``), for the same bytes.  It ends with a JSON
-line per kernel (B2's batched mode its own line, K3, K4, K5 and K6
-theirs), the card's line from nvidia-smi and ``{"ok": true, "device":
-{...}}``.  Any failure raises and exits non-zero; with no card
-it exits 2 before printing any result.  All inputs are made from fixed
+host (``host_rounds {...}``), for the same bytes.  Then the
+multi-device prover (``parallel/``): the 2^20 NIZK proved and the SNARK
+encoded and proved once more under a mesh that lists the card 4 times,
+each shard a launch of B1 or B2 at its own size (``sharded {...}``: the
+bytes equal the default path's and verify, sharded rounds counted in
+phase one, phase two and the product layers, walls, spans, launches and
+peak memory beside the default path's, B1's launches held against the
+plain version on their first, middle and last rows, B1 and B2 bit for
+bit at the first sharded shapes, 4 launches at n/4 timed beside one at
+n); and the two-tier collectives on the card listed 8 times as (2
+hosts, 4 devices) against python ints and the host MSM (``dcn
+{...}``).  It ends with a JSON line per kernel (B2's batched mode its
+own line, K3, K4, K5 and K6 theirs), the card's line from nvidia-smi
+and ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero; with no card it exits 2 before printing any result.  All inputs are made from fixed
 seeds.
 """
 
@@ -251,11 +261,12 @@ def check_row_msm(dev, gen, shapes) -> dict:
             result = dict(shape=[L, R], ms=ms, plain_ms=plain_ms,
                           max_abs_err=err, windows_ms=win_ms,
                           combine_ms=comb_ms, **bound)
-    result["ms_per_prove"] = sum(v[0] for v in per_prove.values())
-    result["bound_ms_per_prove"] = sum(v[1] for v in per_prove.values())
-    log(f"row_msm per 2^20 prove ({len(per_prove)} launches): "
-        f"{result['ms_per_prove']:.3f} ms, bound "
-        f"{result['bound_ms_per_prove']:.3f} ms")
+    if per_prove:
+        result["ms_per_prove"] = sum(v[0] for v in per_prove.values())
+        result["bound_ms_per_prove"] = sum(v[1] for v in per_prove.values())
+        log(f"row_msm per 2^20 prove ({len(per_prove)} launches): "
+            f"{result['ms_per_prove']:.3f} ms, bound "
+            f"{result['bound_ms_per_prove']:.3f} ms")
     return result
 
 
@@ -478,16 +489,16 @@ PROD_CASES = [(2, 4), (6, 64), (18, 4096), (18, 1 << 19), (12, 1 << 18),
 PROD_TIMED = (18, 1 << 19)
 
 
-def check_cubic_prod(dev, gen) -> dict:
+def check_cubic_prod(dev, gen, cases=PROD_CASES) -> dict:
     """B2's batched mode against its plain version in all three modes at
-    PROD_CASES; each mode timed at PROD_TIMED in a CUDA graph."""
+    ``cases``; each mode timed at PROD_TIMED in a CUDA graph."""
     import torch
 
     from spartan_tpu_torch.core.field import Q
     from spartan_tpu_torch.ff import round_kernel as rk
 
     result = {}
-    for batch, n in PROD_CASES:
+    for batch, n in cases:
         tabs = [with_edges(rand_elems(gen, batch * n, dev), [0, Q - 1, 1])
                 .reshape(batch, n, 8) for _ in range(3)]
         for mode in ("evals", "fold_evals", "fold"):
@@ -1898,6 +1909,225 @@ def host_rounds_paths(inst, vars_a, inputs_a, nizk_ctx, snark_ctx) -> dict:
     return out
 
 
+# The multi-device prover (parallel/): the 2^20 NIZK and SNARK again
+# under a mesh that lists the one card SHARDS times, so each shard is a
+# real launch of B1 or B2 at its own size; then the two-tier collectives
+# on the card listed DCN_GRID[0] x DCN_GRID[1] times.
+SHARDS = 4
+DCN_GRID = (2, 4)
+DCN_POINTS = 1024
+DCN_TABLE = 1 << 16
+
+
+def sharded_paths(dev, gen, inst, vars_a, inputs_a, nizk_ctx, snark_ctx,
+                  nizk_sum, snark_sum) -> dict:
+    """The 2^20 NIZK proved and verified, and the SNARK encoded, proved
+    and verified, under ``Mesh([dev] * SHARDS)``: the commitment and
+    proof bytes must equal the default path's from this run, and sharded
+    rounds must have run in phase one (4 tables at n/SHARDS), phase two
+    (2 at 2n/SHARDS) and the product layers.  Counters reset just before
+    each of the three runs and read just after; B1's launches are held
+    against the plain version on their first, middle and last rows, B1
+    and B2 bit for bit at the first sharded shapes, and SHARDS launches
+    at n/SHARDS are timed beside one launch at n."""
+    import torch
+
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import NIZK, SNARK
+    from spartan_tpu_torch.commitments import MultiCommitGens
+    from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.curve import row_msm as rm
+    from spartan_tpu_torch.ff import round_kernel as rk
+    from spartan_tpu_torch.parallel import context as pctx
+    from spartan_tpu_torch.parallel.mesh import Mesh
+    from spartan_tpu_torch.poly import dense
+    from spartan_tpu_torch.utils import rt, timer
+
+    mesh = Mesh([dev] * SHARDS)
+    n = inst.inst.num_cons
+
+    def run(what, fn, spans):
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        timer.totals.clear()
+        mesh.sharded_rounds.clear()
+        mesh.msm_blocks.clear()
+        f0 = rt.fetches
+        reset_counts()
+        with RowMsmRows() as rows, pctx.use_mesh(mesh):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts()
+        shapes = collections.Counter(rk.fold_evals.launches)
+        block_shapes = sorted({k[1:] for k in mesh.msm_blocks})
+        rows.check(f"sharded {what}", block_shapes)
+        return out, shapes, {
+            "wall_s": wall, "spans_s": {k: timer.totals.get(k)
+                                        for k in spans},
+            "fetches": rt.fetches - f0,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "device_bytes_at_start": start_bytes, "launches": launches,
+            "sharded_rounds": sorted([*k, c] for k, c in
+                                     mesh.sharded_rounds.items()),
+            "msm_blocks": sorted([*k, c] for k, c in
+                                 mesh.msm_blocks.items())}
+
+    nizk, nizk_shapes, nizk_run = run("nizk prove", lambda: NIZK.prove(
+        inst, vars_a, inputs_a, nizk_ctx["gens"], Transcript(b"chip_smoke"),
+        _tape_seed=7), NIZK_SPANS)
+    (comm, decomm), _, encode_run = run("snark encode", lambda: SNARK.encode(
+        inst, snark_ctx["gens"]), ["SNARK::encode"])
+    snark, snark_shapes, snark_run = run("snark prove", lambda: SNARK.prove(
+        inst, comm, decomm, vars_a, inputs_a, snark_ctx["gens"],
+        Transcript(b"chip_smoke_snark"), _tape_seed=7), SNARK_SPANS)
+
+    if ser.nizk_to_bytes(nizk) != nizk_ctx["blob"]:
+        raise AssertionError("the sharded NIZK bytes differ from the "
+                             "default path's")
+    if (ser.commitment_to_bytes(comm)
+            != ser.commitment_to_bytes(snark_ctx["comm"])):
+        raise AssertionError("the sharded SNARK commitment differs from "
+                             "the default path's")
+    if ser.snark_to_bytes(snark) != snark_ctx["blob"]:
+        raise AssertionError("the sharded SNARK bytes differ from the "
+                             "default path's")
+    t0 = time.perf_counter()
+    nizk.verify(inst, inputs_a, Transcript(b"chip_smoke"), nizk_ctx["gens"])
+    nizk_run["verify_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snark.verify(comm, inputs_a, Transcript(b"chip_smoke_snark"),
+                 snark_ctx["gens"], device=dev)
+    snark_run["verify_s"] = time.perf_counter() - t0
+
+    # sharded rounds in phase one, phase two and the product layers: each
+    # phase's first round at the shards' size, once a shard
+    local = n // SHARDS
+    for what, shapes, key in (
+            ("phase one", nizk_shapes, ("cubic", 1, local, "evals")),
+            ("phase two", nizk_shapes, ("quad", 1, 2 * local, "evals")),
+            ("SNARK phase one", snark_shapes, ("cubic", 1, local, "evals"))):
+        if shapes[key] != SHARDS:
+            raise AssertionError(f"{what} under the mesh: {shapes[key]} "
+                                 f"launches at {key}, not {SHARDS}")
+    layer = [k for k in snark_run["sharded_rounds"] if k[0] == "layer"]
+    if not layer:
+        raise AssertionError("no sharded product-layer round ran")
+    for what, r in (("nizk", nizk_run), ("snark", snark_run)):
+        if min(r["launches"]["row_msm"], r["launches"]["fold_evals"]) <= 0:
+            raise AssertionError(f"sharded {what}: B1 or B2 never "
+                                 f"launched: {r['launches']}")
+
+    # B1 and B2 against their plain versions at the first sharded shapes
+    check_fold_evals(dev, gen, [(4, local), (2, 2 * local)])
+    prod = max((k for k in snark_shapes if k[0] == "cubic_prod"),
+               key=lambda k: k[1] * k[2])
+    check_cubic_prod(dev, gen, [prod[1:3]])
+    left, right = dense.factored_lens(n.bit_length() - 1)
+    L, R = 1 << left, 1 << right  # the witness commitment's rows
+    check_row_msm(dev, gen, [(L // SHARDS, R)])
+
+    # SHARDS launches at n/SHARDS beside one at n: B2's fold-and-evals
+    # on phase one's four tables, B1 on the witness rows
+    r = 10 ** 70 + 33
+    whole = [rand_elems(gen, n, dev) for _ in range(4)]
+    parts = [[t[k::SHARDS].contiguous() for t in whole]
+             for k in range(SHARDS)]
+    b2_one = graph_ms(lambda: rk.fold_evals(whole, r, "fold_evals"), 5)
+    b2_shards = graph_ms(lambda: [rk.fold_evals(p, r, "fold_evals")
+                                  for p in parts], 5)
+    tab = MultiCommitGens(R, b"chip_smoke").msm_table(dev)
+    s = rand_elems(gen, L * R, dev).reshape(L, R, 8)
+    lb = L // SHARDS
+    b1_one = cuda_ms(lambda: rm.row_msm(s, tab), 3)
+    b1_shards = cuda_ms(lambda: [rm.row_msm(s[k * lb:(k + 1) * lb], tab)
+                                 for k in range(SHARDS)], 3)
+    per_round = {
+        "fold_evals_4_tables_one_launch_at_n_ms": b2_one,
+        f"fold_evals_4_tables_{SHARDS}_launches_at_n_over_{SHARDS}_ms":
+            b2_shards,
+        "row_msm_one_launch_ms": b1_one,
+        f"row_msm_{SHARDS}_blocks_ms": b1_shards,
+        "rows": [L, R], "n": n}
+    log(f"sharded B2 at {n}: one launch {b2_one:.4f} ms, {SHARDS} at "
+        f"{n // SHARDS} {b2_shards:.4f} ms (CUDA graph); B1 at ({L}, {R}): "
+        f"one launch {b1_one:.3f} ms, {SHARDS} blocks of {lb} rows "
+        f"{b1_shards:.3f} ms")
+
+    out = {"shards": SHARDS, "devices": [str(d) for d in mesh.devices],
+           "nizk_prove": nizk_run, "snark_encode": encode_run,
+           "snark_prove": snark_run,
+           "default_path": {
+               "nizk_prove_s": nizk_sum["prove_s"],
+               "nizk_verify_s": nizk_sum["verify_s"],
+               "nizk_phases_s": nizk_sum["phases_s"],
+               "nizk_peak_device_bytes": nizk_sum["peak_device_bytes"],
+               "snark_encode_s": snark_sum["encode_s"],
+               "snark_prove_s": snark_sum["prove_s"],
+               "snark_verify_s": snark_sum["verify_s"],
+               "snark_spans_s": snark_sum["spans_s"],
+               "snark_peak_device_bytes": snark_sum["peak_device_bytes"]},
+           "launch_cost": per_round, "bytes_equal_default_path": True}
+    log("sharded " + json.dumps(out))
+    return out
+
+
+def dcn_check(dev, gen) -> dict:
+    """The two-tier collectives on ``[dev] * 8`` shaped DCN_GRID:
+    ``all_reduce_field`` and ``sum_mod_q_two_tier``
+    against python ints, ``msm_two_tier`` (K5 on each device's block)
+    against the host MSM."""
+    import torch
+
+    from spartan_tpu_torch.core import edwards as hed
+    from spartan_tpu_torch.core import ristretto as hri
+    from spartan_tpu_torch.core.field import Q
+    from spartan_tpu_torch.curve import edwards as ed
+    from spartan_tpu_torch.curve import point_msm as pm
+    from spartan_tpu_torch.ff import fq, limb
+    from spartan_tpu_torch.parallel import dcn
+
+    hosts, per = DCN_GRID
+    mesh2d = dcn.make_mesh2d(hosts, per, [dev] * (hosts * per))
+    vals = fq.decode_to_ints(rand_elems(gen, hosts * per * 3, dev))
+    partials = [fq.encode_ints(vals[3 * k:3 * k + 3], dev)
+                for k in range(hosts * per)]
+    want = [sum(vals[3 * k + i] for k in range(hosts * per)) % Q
+            for i in range(3)]
+    if fq.decode_to_ints(dcn.all_reduce_field(partials, mesh2d)) != want:
+        raise AssertionError("all_reduce_field differs from the python-int "
+                             "sum")
+    table = rand_elems(gen, DCN_TABLE, dev)
+    got = fq.decode_to_ints(dcn.sum_mod_q_two_tier(mesh2d)(table))
+    if got != [sum(fq.decode_to_ints(table)) % Q]:
+        raise AssertionError("sum_mod_q_two_tier differs from the "
+                             "python-int sum")
+    pts = random_points(gen, DCN_POINTS, dev)
+    scalars = rand_elems(gen, DCN_POINTS, dev)
+    pm.point_msm.launches = 0
+    t0 = time.perf_counter()
+    out = dcn.msm_two_tier(mesh2d)(scalars, pts)
+    torch.cuda.synchronize()
+    msm_s = time.perf_counter() - t0
+    launches = pm.point_msm.launches
+    got_pt = ed.to_host(ed.unstack(out))[0]
+    want_pt = hed.msm(limb.limbs_to_ints(scalars),
+                      ed.to_host(ed.unstack(pts)))
+    if hri.encode(got_pt) != hri.encode(want_pt):
+        raise AssertionError("msm_two_tier differs from the host MSM")
+    if launches != hosts * per:
+        raise AssertionError(f"msm_two_tier launched K5 {launches} times, "
+                             f"not {hosts * per}")
+    result = {"grid": list(DCN_GRID), "field_elements": 3,
+              "table": DCN_TABLE, "points": DCN_POINTS,
+              "msm_two_tier_s": msm_s, "point_msm_launches": launches,
+              "blocks": sorted([*k, c] for k, c in
+                               mesh2d.msm_blocks.items())}
+    log("dcn " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1958,13 +2188,24 @@ def main() -> int:
                                  f"{gated[what]['launches']['row_msm']} "
                                  f"launches, the host path's "
                                  f"{host['row_msm']}")
+    # after the replay's comparison above: the sharded runs reset the
+    # counters again
+    sharded = sharded_paths(dev, gen, inst, vars_a, inputs_a, nizk_ctx,
+                            snark_ctx, summary, snark)
+    dcn = dcn_check(dev, gen)
     by_path = {
         name: {"nizk_prove": summary["launches"][name],
                "snark_encode": snark["launches"]["encode"][name],
                "snark_prove": snark["launches"]["prove"][name],
                "nizk_prove_device_prover": gated["nizk"]["launches"][name],
                "snark_prove_device_prover":
-                   gated["snark"]["launches"][name]}
+                   gated["snark"]["launches"][name],
+               "nizk_prove_sharded":
+                   sharded["nizk_prove"]["launches"][name],
+               "snark_encode_sharded":
+                   sharded["snark_encode"]["launches"][name],
+               "snark_prove_sharded":
+                   sharded["snark_prove"]["launches"][name]}
         for name in ("row_msm", "fold_evals", "fold_evals_device_r",
                      "strobe_step", "ristretto_compress", "point_msm",
                      "bullet_step")}
@@ -1975,13 +2216,18 @@ def main() -> int:
              replaces="spartan_tpu/curve/pallas_msm.py:275",
              launches=summary["launches"]["row_msm"], library_ms=None,
              launches_by_path=by_path["row_msm"],
-             spark_shapes=snark["row_msm_on_spark_tables"], **msm),
+             spark_shapes=snark["row_msm_on_spark_tables"],
+             sharded_blocks={k: sharded[k]["msm_blocks"] for k in (
+                 "nizk_prove", "snark_encode", "snark_prove")},
+             sharded_launch_cost=sharded["launch_cost"], **msm),
         dict(name="fold_evals", route="cuda",
              source="spartan_tpu_torch/csrc/fold_evals.cu",
              replaces="spartan_tpu/ff/pallas_kernels.py:211",
              launches=summary["launches"]["fold_evals"], library_ms=None,
              launches_by_path=by_path["fold_evals"],
              device_r_launches_by_path=by_path["fold_evals_device_r"],
+             sharded_rounds={k: sharded[k]["sharded_rounds"] for k in (
+                 "nizk_prove", "snark_prove")},
              **fold),
         dict(name="fold_evals[cubic_prod, batched]", route="cuda",
              source="spartan_tpu_torch/csrc/fold_evals.cu",
@@ -2008,7 +2254,7 @@ def main() -> int:
                       "spartan_tpu/curve/msm.py:147",
              launches=summary["launches"]["point_msm"],
              launches_by_path=by_path["point_msm"], library_ms=None,
-             shape=list(K5_CASES[0][1]), max_abs_err=0,
+             dcn=dcn, shape=list(K5_CASES[0][1]), max_abs_err=0,
              ms=k5["cross_2048"]["ms"], plain_ms=k5["cross_2048"]["plain_ms"],
              bound_ms=k5["cross_2048"]["bound_ms"],
              bound_by=k5["cross_2048"]["bound_by"],

@@ -3,10 +3,11 @@
 
 The 2^ell table is viewed as an L x R matrix (L = 2^(ell/2) rows); each
 row gets one Pedersen commitment under a shared generator vector: one
-row-MSM (kernel B1) over all rows, a second one with R = 1 for the
-blinds times h, one batched point addition and one batched ristretto
-compression.  The evaluation proof reduces Z(r) = v to a log-size
-dot-product proof on the R-side vector.
+row-MSM (kernel B1) over all rows (under a device mesh, a launch a
+device on its block of rows, ``parallel/mesh.py``), a second one with
+R = 1 for the blinds times h, one batched point addition and one
+batched ristretto compression.  The evaluation proof reduces Z(r) = v
+to a log-size dot-product proof on the R-side vector.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from ..curve import msm as dmsm
 from ..curve import ristretto as dri
 from ..curve.row_msm import row_msm
 from ..ff import fq, limb
+from ..parallel import context as pctx
+from ..parallel.mesh import msm_rows_blocked
 from ..protocols.dotproduct_log import DotProductProofLog
 from ..protocols.sigma import DotProductProofGens
 from ..utils.errors import ProofVerifyError
@@ -67,7 +70,7 @@ def commit(Z: torch.Tensor, gens: PolyCommitmentGens,
 
     t = Timer("commit::msm_rows")
     scalars = fq.from_mont(Z).reshape(L_size, R_size, limb.NWORDS)
-    rows = dmsm.msm_rows(scalars, g)  # (L_size,)
+    rows = msm_rows_blocked(scalars, g, pctx.get_mesh())  # (L_size,)
     t.stop()
     t = Timer("commit::blinds")
     # blinds * h: the same row-MSM kernel with R = 1 and generator h

@@ -9,9 +9,10 @@ build is one field product per layer, and a layer's rounds are
 weight) tables appended as more instances at layer 0: one launch of
 kernel B2's batched 3-table mode (``ff.round_kernel``) a round, the
 ``(3, B)`` evals fetched in one transfer and folded on the host with
-the layer's random coefficients.  The
-JAX package's bit-reversed layout, its padded tiers and one-program
-rounds answered the TPU's compile costs and are not ported.
+the layer's random coefficients (one launch a shard under a device
+mesh, ``parallel/mesh.py``).  The JAX package's bit-reversed layout,
+its padded tiers and one-program rounds answered the TPU's compile
+costs and are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from ..core.field import Q
 from ..core.merlin import Transcript
 from ..ff import fq, limb
+from ..parallel import context as pctx
 from ..poly import dense
 from ..utils.errors import ProofVerifyError
 from .sumcheck import SumcheckInstanceProof
@@ -123,9 +125,12 @@ class ProductCircuitEvalProofBatched:
                 Bt = torch.cat([Bt, dotp.right])
                 C_b = torch.cat([C_b, dotp.weight])
 
+            # the layer's rounds shard over an active device mesh (JAX
+            # product_tree.py:411-420); prove_cubic's callers do not
             layer_proof, r_round, tables = \
                 SumcheckInstanceProof.prove_cubic_batched(
-                    claim, num_rounds, [A, Bt, C_b], coeffs, transcript)
+                    claim, num_rounds, [A, Bt, C_b], coeffs, transcript,
+                    pctx.get_mesh())
             A, Bt, C_b = tables
 
             # all end-of-layer claims in one fetch

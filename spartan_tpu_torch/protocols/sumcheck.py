@@ -15,6 +15,11 @@ The clear-text ``SumcheckInstanceProof`` sends the round polynomials
 as they are.  Its rounds over the comb A*B*C (``prove_cubic_batched``,
 the product-tree layers' rounds; ``prove_cubic`` is its one-instance
 case) run through kernel B2's batched 3-table mode.
+
+Under a device mesh (``parallel/context.py``) the ZK phases' tables,
+and the product layers' tables that their site passes in, are sharded
+over the mesh, one B2 launch a shard a round (``parallel/mesh.py``),
+for the same bytes.
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ from ..core.field import Q
 from ..core.merlin import RandomTape, Transcript
 from ..curve.msm import vmsm
 from ..ff import fq
-from ..ff.round_kernel import fold_evals
+from ..parallel import context as pctx
+from ..parallel.mesh import (ShardedProductLayerTables,
+                             ShardedSumcheckTables, evals_to_ints)
 from ..poly.unipoly import UniPoly
 from ..utils.errors import ProofVerifyError
 from . import _combs
@@ -40,16 +47,20 @@ from .sigma import DotProductProof, _decompress
 def _use_device_prover() -> bool:
     """The device-resident ZK phases and product layers
     (``protocols/device_prover.py``): opt-in, SPARTAN_TPU_DEVICE_PROVER=1,
-    as in the JAX package (its ``protocols/sumcheck.py:37-62``)."""
-    # the JAX package also turns this off under a device mesh; the port
-    # has no mesh until its multi-device slice
+    as in the JAX package (its ``protocols/sumcheck.py:37-62``).  Off
+    under a device mesh: the sharded host-path rounds run there (the
+    device transcript is one device's)."""
+    if pctx.get_mesh() is not None:
+        return False
     return os.environ.get("SPARTAN_TPU_DEVICE_PROVER", "0") == "1"
 
 
 def _use_device_nonzk() -> bool:
     """The device-resident product layers only: opt-in,
-    SPARTAN_TPU_DEVICE_NONZK=1 (JAX ``protocols/sumcheck.py:65-88``)."""
-    # no mesh check until the port's multi-device slice, as above
+    SPARTAN_TPU_DEVICE_NONZK=1 (JAX ``protocols/sumcheck.py:65-88``);
+    off under a device mesh, as above."""
+    if pctx.get_mesh() is not None:
+        return False
     return os.environ.get("SPARTAN_TPU_DEVICE_NONZK", "0") == "1"
 
 
@@ -95,22 +106,23 @@ class SumcheckInstanceProof:
     @staticmethod
     def prove_cubic_batched(claim: int, num_rounds: int,
                             tables: list[torch.Tensor], coeffs: list[int],
-                            transcript: Transcript
+                            transcript: Transcript, mesh=None
                             ) -> tuple["SumcheckInstanceProof", list[int],
                                        list[torch.Tensor]]:
         """prove_cubic_batched (sumcheck.rs:254-424) over the comb A*B*C
         of B instances: ``tables`` = [A, B, C], (B, n, 8), n =
         2^num_rounds; instance b's round polynomial enters with weight
-        ``coeffs[b]``.  One launch of kernel B2's batched mode a round,
-        its (3, B) evals fetched at once.  Returns (proof, challenges,
-        the bound (B, 1, 8) tables)."""
+        ``coeffs[b]``.  One launch of kernel B2's batched mode a round
+        (a shard, over ``mesh``), its (3, B) evals fetched at once.
+        Returns (proof, challenges, the bound (B, 1, 8) tables)."""
         e = claim % Q
         r: list[int] = []
         compressed = []
+        tabs = ShardedProductLayerTables(mesh, *tables)
         if num_rounds:
-            tables, ev = fold_evals(tables, None, "evals")
+            ev = tabs.evals()
         for j in range(num_rounds):
-            flat = fq.decode_to_ints(ev)
+            flat = evals_to_ints(ev)
             nb = len(flat) // 3
             e0, e2, e3 = (sum(c * v for c, v in
                               zip(coeffs, flat[i * nb:(i + 1) * nb])) % Q
@@ -120,10 +132,10 @@ class SumcheckInstanceProof:
             r_j = transcript.challenge_scalar(b"challenge_nextround")
             r.append(r_j)
             mode = "fold_evals" if j + 1 < num_rounds else "fold"
-            tables, ev = fold_evals(tables, r_j, mode)
+            ev = tabs.round(r_j, mode)
             e = poly.evaluate(r_j)
             compressed.append(poly.compress())
-        return SumcheckInstanceProof(compressed), r, tables
+        return SumcheckInstanceProof(compressed), r, tabs.tables
 
 
 @dataclass
@@ -173,8 +185,8 @@ class ZKSumcheckInstanceProof:
         """Shared round loop for prove_quad / prove_cubic_with_additive_term
         (identical structure, sumcheck.rs:428-586 vs 588-776).  ``tables``
         are (n, 8) Montgomery tables, n = 2^num_rounds; ``which`` names
-        the comb ("quad" or "cubic")."""
-        assert len(tables) == _combs.NTABLES[which]
+        the comb ("quad" or "cubic").  Under a device mesh the tables
+        are sharded over it (JAX ``sumcheck.py:436-447``)."""
         assert tables[0].shape[0] == 1 << num_rounds
         nevals = _combs.NEVALS[which]
         blinds_poly = tape.random_vector(b"blinds_poly", num_rounds)
@@ -188,9 +200,10 @@ class ZKSumcheckInstanceProof:
         comm_evals: list[bytes] = []
         proofs: list[DotProductProof] = []
 
-        tables, es_dev = fold_evals(tables, None, "evals")
+        tabs = ShardedSumcheckTables(pctx.get_mesh(), tables, which)
+        es_dev = tabs.evals()
         for j in range(num_rounds):
-            es = fq.decode_to_ints(es_dev)[:nevals]
+            es = evals_to_ints(es_dev)[:nevals]
             e0 = es[0]
             evals = [e0, (claim_per_round - e0) % Q] + es[1:]
             poly = UniPoly.from_evals(evals)
@@ -203,7 +216,7 @@ class ZKSumcheckInstanceProof:
             # the device folds (and evaluates the next round) while the
             # host runs this round's sigma proof
             mode = "fold_evals" if j + 1 < num_rounds else "fold"
-            tables, es_dev = fold_evals(tables, r_j, mode)
+            es_dev = tabs.round(r_j, mode)
 
             eval_r = poly.evaluate(r_j)
             comm_eval = hri.encode(
@@ -233,7 +246,7 @@ class ZKSumcheckInstanceProof:
             r.append(r_j)
             comm_evals.append(comm_eval)
 
-        final_claims = fq.decode_to_ints(torch.cat(tables, dim=0))
+        final_claims = fq.decode_to_ints(tabs.final_scalars())
         return (
             ZKSumcheckInstanceProof(comm_polys, comm_evals, proofs),
             r,

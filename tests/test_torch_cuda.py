@@ -14,8 +14,10 @@ K4 (``curve/ristretto.py``) also at 1-4,097 points with lazy coordinates,
 K3 (``transcript/device.py``) also with 16 segments and at odd offsets,
 and for K5 (``curve/point_msm.py``) also groups that are no power of
 two; K5 and K6 (``ff/bullet_kernel.py``) run on two streams at once too.
-The golden NIZK and SNARK run with the default bullet rounds and with
-every round on the device (``bullet.DEVICE_MIN`` set to 1).
+The golden NIZK and SNARK run with the default bullet rounds, with
+every round on the device (``bullet.DEVICE_MIN`` set to 1), and under a
+mesh that lists the card 4 times (``parallel/mesh.py``: one B1 or B2
+launch a shard).
 """
 
 import pytest
@@ -190,6 +192,44 @@ def test_golden_nizk_on_the_card(dev, rounds, monkeypatch):
     with open(golden, "rb") as f:
         assert ser.nizk_to_bytes(nizk) == f.read()
 
+
+@pytest.mark.parametrize("proof", ["nizk", "snark"])
+def test_golden_under_a_mesh_on_the_card(dev, proof):
+    import os
+
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import (NIZK, SNARK, Instance, NIZKGens,
+                                       SNARKGens)
+    from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.parallel import context as pctx
+    from spartan_tpu_torch.parallel.mesh import Mesh
+
+    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
+        16, 16, 2, seed=424242, device=dev)
+    mesh = Mesh([dev] * 4)
+    before = rk.fold_evals.launches.copy()
+    with pctx.use_mesh(mesh):
+        if proof == "nizk":
+            blobs = {"nizk_proof.bin": ser.nizk_to_bytes(NIZK.prove(
+                inst, vars_a, inputs_a, NIZKGens(16, 16, 2),
+                Transcript(b"golden_nizk"), _tape_seed=31337))}
+        else:
+            gens = SNARKGens(16, 16, 2, 16)
+            comm, decomm = SNARK.encode(inst, gens)
+            snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,
+                                Transcript(b"golden_snark"),
+                                _tape_seed=31337)
+            blobs = {"snark_commitment.bin": ser.commitment_to_bytes(comm),
+                     "snark_proof.bin": ser.snark_to_bytes(snark)}
+    golden = os.path.join(os.path.dirname(__file__), "golden")
+    for name, blob in blobs.items():
+        with open(os.path.join(golden, name), "rb") as f:
+            assert blob == f.read(), name
+    # phase one's first round: a launch a shard at 16 / 4 entries
+    assert mesh.sharded_rounds["sumcheck", 4] > 0
+    assert rk.fold_evals.launches["cubic", 1, 4, "evals"] \
+        >= before["cubic", 1, 4, "evals"] + 4
+    assert mesh.msm_blocks
 
 def test_strobe_step_kernel_vs_plain(dev):
     """K3 on 64 random states with and without a mask, with segments,

@@ -6,7 +6,14 @@ right, weight); both writers write all three, empty when the proof
 carries none (``claims_dotp`` empty or ``None``), and both readers read
 three.  Each case is written by both writers and read back by the
 port's reader.
+
+The proof-size reports (``r1cs_sat_size_report``, ``nizk_size_report``,
+``snark_size_report``) and ``compressed_size`` of both packages, read
+from the golden proofs' bytes, are equal key by key, and each report
+sums to the blob's length.
 """
+
+import os
 
 import jax  # noqa: F401  (imported first in every port test file)
 import pytest
@@ -64,3 +71,25 @@ def test_prod_circuit_proof_writer_matches_reference(case):
     assert tuple(list(x) for x in back.claims_dotp) == tuple(
         list(x) for x in want_dotp)
     assert _write(ser, back) == got
+
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+
+
+def _golden(name):
+    with open(os.path.join(GOLDEN, name), "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("what", ["nizk", "snark"])
+def test_size_reports_match_reference(what):
+    blob = _golden(f"{what}_proof.bin")
+    ours = getattr(ser, f"{what}_from_bytes")(blob)
+    ref = getattr(jser, f"{what}_from_bytes")(blob)
+    report = getattr(ser, f"{what}_size_report")(ours)
+    assert report == getattr(jser, f"{what}_size_report")(ref)
+    assert sum(report.values()) == len(blob)
+    assert (ser.r1cs_sat_size_report(ours.r1cs_sat_proof)
+            == jser.r1cs_sat_size_report(ref.r1cs_sat_proof))
+    assert ser.compressed_size(blob) == jser.compressed_size(blob)
+    assert 0 < ser.compressed_size(blob) < len(blob)

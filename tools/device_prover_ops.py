@@ -16,7 +16,10 @@ round (``protocols/bullet.py``: the default path's device round, with
 its 64-byte fetch and the host transcript) and a round of the device
 dot-product-log (transcript on the device) are counted inside the
 rounds themselves, from the start of ``round_commit`` to the end of
-``round_fold``, over the 4 rounds at n = 16, and divided by 4.  Prints
+``round_fold``, over the 4 rounds at n = 16, and divided by 4.  The sum
+of a sharded round's 4 partial (3, 18, 8) evals is counted both ways
+(``parallel/mesh.py``): on the device by ``psum_mod_q`` and fetched and
+added on the host by ``evals_to_ints``.  Prints
 one JSON line.  On the card each counted operation is about one kernel
 launch; the count does not depend on the device.
 """
@@ -45,6 +48,8 @@ from spartan_tpu_torch.curve import row_msm as rm  # noqa: E402
 from spartan_tpu_torch.ff import bullet_kernel as bk  # noqa: E402
 from spartan_tpu_torch.ff import fq, limb  # noqa: E402
 from spartan_tpu_torch.ff import round_kernel as rk  # noqa: E402
+from spartan_tpu_torch.parallel.mesh import (evals_to_ints,  # noqa: E402
+                                             psum_mod_q)
 from spartan_tpu_torch.protocols import bullet  # noqa: E402
 from spartan_tpu_torch.protocols import device_prover as dp  # noqa: E402
 from spartan_tpu_torch.protocols.product_tree import (  # noqa: E402
@@ -192,6 +197,11 @@ def main() -> int:
         c = measure(fn, 4, active=False)
         out[name] = {"torch_ops": c.ops / 4,
                      "kernels": {k: v / 4 for k, v in c.kernels.items()}}
+    evs = [fq.encode_ints(range(k, k + 3 * 18)).reshape(3, 18, 8)
+           for k in range(4)]
+    out["sharded_evals_4x(3,18)"] = {
+        "psum_mod_q": measure(psum_mod_q, evs, "cpu").ops,
+        "evals_to_ints": measure(evals_to_ints, evs).ops}
     print(json.dumps(out))
     return 0
 
