@@ -16,6 +16,9 @@ of the port, on the CPU through the kernels' plain versions.
   the inputs of ``tests/test_device_prover.py``'s dot-product-log test
   (n = 16, tape seed 31): equal bytes and ``post`` challenge, and the
   proof verifies.
+
+The JAX package's side of both is recorded in
+``tests/golden/port/bullet-*.npz`` (``record.py``).
 """
 
 import random
@@ -25,13 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from spartan_tpu import commitments as jcom
-from spartan_tpu import serialize as jser
-from spartan_tpu.core import merlin as jmerlin
-from spartan_tpu.poly import dense as jdense
-from spartan_tpu.protocols import bullet as jbullet
-from spartan_tpu.protocols import dotproduct_log as jdl
-from spartan_tpu.protocols import sigma as jsigma
+from golden.port.record import load, to_ints
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu_torch import serialize as ser
 from spartan_tpu_torch.commitments import MultiCommitGens
 from spartan_tpu_torch.core import edwards as hed
@@ -118,60 +116,65 @@ def test_bullet_step_checks_arguments():
         bullet_step("nope", a)
 
 
-@pytest.mark.parametrize("n", [8, 16])
-def test_device_rounds_equal_jax_host_path(n, monkeypatch):
-    monkeypatch.setitem(bullet.DEVICE_MIN, "cpu", 1)
+def _rounds_inputs(n):
+    """a, b, the blinds, Q and the gens' label of a bullet reduction of
+    n entries (``record.py`` reads them too)."""
     rng = np.random.default_rng(n)
     a_i = [int(v) for v in rng.integers(0, 1 << 62, size=n)]
     b_i = [int(v) for v in rng.integers(0, 1 << 62, size=n)]
     lg_n = n.bit_length() - 1
     blinds = [(int(rng.integers(1, 1 << 62)), int(rng.integers(1, 1 << 62)))
               for _ in range(lg_n)]
-    q_pt = hed.BASEPOINT.mul(987654321)
-    label = b"bullet test gens"
+    return a_i, b_i, blinds, hed.BASEPOINT.mul(987654321), b"bullet test gens"
 
-    tj = jmerlin.Transcript(b"bullet")
-    jg = jcom.MultiCommitGens(n, label)
-    (jproof, jgamma, ja, jb, jgh, jbf) = jbullet.BulletReductionProof.prove(
-        tj, q_pt, jg.device_G, jg.h, jdense.from_ints(a_i),
-        jdense.from_ints(b_i), 4242, blinds)
+
+def _blobs(a):
+    return [r.tobytes() for r in a]
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_device_rounds_equal_jax_host_path(n, monkeypatch):
+    monkeypatch.setitem(bullet.DEVICE_MIN, "cpu", 1)
+    a_i, b_i, blinds, q_pt, label = _rounds_inputs(n)
+    jax_proof = load(f"bullet-rounds-{n}")
 
     t = Transcript(b"bullet")
     (proof, gamma, a_hat, b_hat, g_hat, bf) = bullet.BulletReductionProof.prove(
         t, q_pt, MultiCommitGens(n, label), fq.encode_ints(a_i),
         fq.encode_ints(b_i), 4242, blinds)
-    assert (proof.L_vec, proof.R_vec) == (jproof.L_vec, jproof.R_vec)
-    assert (a_hat, b_hat, bf) == (ja, jb, jbf)
-    assert hri.encode(g_hat) == hri.encode(jgh)
-    assert hri.encode(gamma) == hri.encode(jgamma)
-    assert t.challenge_scalar(b"post") == tj.challenge_scalar(b"post")
-    assert len(proof.L_vec) == lg_n
+    assert (proof.L_vec, proof.R_vec) == (_blobs(jax_proof["L_vec"]),
+                                          _blobs(jax_proof["R_vec"]))
+    assert [a_hat, b_hat, bf] == to_ints(jax_proof["scalars"])
+    assert hri.encode(g_hat) == jax_proof["g_hat"].tobytes()
+    assert hri.encode(gamma) == jax_proof["gamma"].tobytes()
+    assert t.challenge_scalar(b"post") == to_ints(jax_proof["post"])
+    assert len(proof.L_vec) == len(blinds)
+
+
+def _dplog_inputs():
+    """n, x, a and y = <x, a> of the dot-product-log (``record.py``
+    reads them too)."""
+    n = 16
+    rng = np.random.default_rng(21)
+    x_ints = [int(v) for v in rng.integers(1, 1 << 60, size=n)]
+    a_ints = [int(v) for v in rng.integers(1, 1 << 60, size=n)]
+    return n, x_ints, a_ints, sum(a * b for a, b in zip(x_ints, a_ints)) % Q
 
 
 def test_device_dotproduct_log_equals_jax_host_path(monkeypatch):
     monkeypatch.setenv("SPARTAN_TPU_DEVICE_PROVER", "1")
     monkeypatch.delenv("SPARTAN_TPU_DEVICE_DPLOG", raising=False)
-    n = 16
-    rng = np.random.default_rng(21)
-    x_ints = [int(v) for v in rng.integers(1, 1 << 60, size=n)]
-    a_ints = [int(v) for v in rng.integers(1, 1 << 60, size=n)]
-    y = sum(a * b for a, b in zip(x_ints, a_ints)) % Q
-
-    tj = jmerlin.Transcript(b"dplog")
-    jproof, jcx, jcy = jdl.DotProductProofLog.prove(
-        jsigma.DotProductProofGens(n, b"dplog test"), tj,
-        jmerlin.RandomTape(b"tape", seed=31), jdense.from_ints(x_ints), 555,
-        jdense.from_ints(a_ints), a_ints, y, 777)
+    n, x_ints, a_ints, y = _dplog_inputs()
+    jax_proof = load("bullet-dplog")
 
     gens = DotProductProofGens(n, b"dplog test")
     t = Transcript(b"dplog")
     proof, cx, cy = DotProductProofLog.prove(
         gens, t, RandomTape(b"tape", seed=31), fq.encode_ints(x_ints), 555,
         fq.encode_ints(a_ints), a_ints, y, 777)
-    assert (cx, cy) == (jcx, jcy)
-    w, jw = ser.Writer(), jser.Writer()
+    assert (cx, cy) == (jax_proof["cx"].tobytes(), jax_proof["cy"].tobytes())
+    w = ser.Writer()
     ser._w_dotproduct_log(w, proof)
-    jser._w_dotproduct_log(jw, jproof)
-    assert w.getvalue() == jw.getvalue()
-    assert t.challenge_scalar(b"post") == tj.challenge_scalar(b"post")
+    assert w.getvalue() == jax_proof["proof"].tobytes()
+    assert t.challenge_scalar(b"post") == to_ints(jax_proof["post"])
     proof.verify(n, gens, Transcript(b"dplog"), a_ints, cx, cy)

@@ -35,6 +35,7 @@ import jax  # noqa: F401  (imported first in every port test file)
 import pytest
 import torch  # noqa: F401
 
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu.core import edwards as jed
 from spartan_tpu.core import field as jfield
 from spartan_tpu.core import keccak as jkeccak

@@ -25,6 +25,7 @@ import jax  # noqa: F401  (imported first in every port test file)
 import numpy as np
 import pytest
 
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu_torch.core import edwards as hed
 from spartan_tpu_torch.core import ristretto as hri
 from spartan_tpu_torch.core.field import Q

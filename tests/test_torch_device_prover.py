@@ -18,6 +18,9 @@ device_prover.py``) on the CPU, through the kernels' plain versions.
   ``SPARTAN_TPU_DEVICE_NONZK=1``, and both with every bullet round on
   the device (``bullet.DEVICE_MIN`` of the CPU set to 1, no gate).  No
   JAX code runs here.
+
+The golden proofs under ``SPARTAN_TPU_DEVICE_PROVER`` run the opt-in device
+prover alone and take over 20 s on the CPU: they are ``slow``.
 """
 
 import os
@@ -27,6 +30,7 @@ import jax  # noqa: F401
 import pytest
 import torch
 
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu_torch import serialize as ser
 from spartan_tpu_torch.api import (NIZK, SNARK, Instance, NIZKGens,
                                    SNARKGens)
@@ -188,7 +192,9 @@ def _set_path(monkeypatch, path: str) -> None:
         monkeypatch.setenv(path, "1")
 
 
-@pytest.mark.parametrize("path", [GATES[0], DEVICE_ROUNDS])
+# the gate's case runs the opt-in device prover alone, over 20 s cold: slow
+@pytest.mark.parametrize(
+    "path", [pytest.param(GATES[0], marks=pytest.mark.slow), DEVICE_ROUNDS])
 def test_golden_nizk_with_device_prover(path, golden_inst, no_gates):
     _set_path(no_gates, path)
     inst, vars_a, inputs_a = golden_inst
@@ -199,7 +205,9 @@ def test_golden_nizk_with_device_prover(path, golden_inst, no_gates):
     nizk.verify(inst, inputs_a, Transcript(b"golden_nizk"), gens)
 
 
-@pytest.mark.parametrize("gate", GATES + (DEVICE_ROUNDS,))
+@pytest.mark.parametrize(
+    "gate", [pytest.param(GATES[0], marks=pytest.mark.slow), GATES[1],
+             DEVICE_ROUNDS])
 def test_golden_snark_with_device_prover(gate, golden_inst,
                                          golden_snark_setup, no_gates):
     _set_path(no_gates, gate)

@@ -4,8 +4,8 @@ the CPU, through their plain versions, against the host merlin
 transcript, python-int oracles and the JAX package.
 
 * The plain keccak-f[1600] against ``core/keccak.py`` on 32 random
-  states and against JAX ``keccak_f1600_device`` on one (a small XLA
-  compile).
+  states and against JAX ``keccak_f1600_device`` on one (its output
+  recorded in ``tests/golden/port/transcript-keccak.npz``).
 * ``DeviceTranscript`` against ``core.merlin.Transcript``: one script of
   every operation (a scalar vector long enough to cross the 166-byte
   rate included) gives equal challenges and an equal final state;
@@ -14,7 +14,7 @@ transcript, python-int oracles and the JAX package.
 * The plain ``compress`` against ``core/ristretto.encode`` on random
   points, the identity and points of each branch (``rotate`` and the
   negative-``y`` fix), and against JAX ``curve/ristretto.compress`` on
-  four points (the second small compile).
+  four points (recorded in ``tests/golden/port/transcript-compress.npz``).
 * The new field helpers against python ints, and kernel B2's plain
   version with a device-form challenge equal to the int form.
 """
@@ -26,9 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from spartan_tpu.curve import ristretto as jri
-from spartan_tpu.curve.edwards import PointArray as JPointArray
-from spartan_tpu.transcript import device as jdt
+from golden.port.record import load
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu_torch import interop
 from spartan_tpu_torch.core import edwards as hed
 from spartan_tpu_torch.core import field as F
@@ -60,13 +59,20 @@ def test_keccak_plain_against_host(seed):
         assert g.tobytes() == _host_permute(s.tobytes())
 
 
-def test_keccak_plain_against_jax():
+def _keccak_lanes():
+    """One random state as (25,) uint32 low and high lane halves
+    (``record.py`` reads it too)."""
     rng = np.random.default_rng(7)
     lanes = rng.integers(0, 1 << 63, 25, dtype=np.uint64)
     lo = (lanes & 0xFFFFFFFF).astype(np.uint32)
     hi = (lanes >> np.uint64(32)).astype(np.uint32)
-    jlo, jhi = jdt.keccak_f1600_device(jax.numpy.asarray(lo),
-                                       jax.numpy.asarray(hi))
+    return lo, hi
+
+
+def test_keccak_plain_against_jax():
+    lo, hi = _keccak_lanes()
+    jax_keccak = load("transcript-keccak")
+    jlo, jhi = jax_keccak["lo"], jax_keccak["hi"]
     plo, phi = dt.keccak_f1600_plain(torch.from_numpy(lo.astype(np.int64)),
                                      torch.from_numpy(hi.astype(np.int64)))
     assert plo.tolist() == np.asarray(jlo).astype(np.int64).tolist()
@@ -254,11 +260,8 @@ def test_compress_plain_against_host():
 
 
 def test_compress_against_jax():
-    pts = _points()[:4]
-    port = ed.from_host(pts, "cpu")
-    jp = JPointArray(*(jax.numpy.asarray(interop.fq_to_jax(c))
-                       for c in port))
-    want = interop.fq_from_jax(np.asarray(jri.compress(jp)))
+    port = ed.from_host(_points()[:4], "cpu")
+    want = interop.fq_from_jax(load("transcript-compress")["s"])
     assert torch.equal(dri.compress(port), want)
 
 

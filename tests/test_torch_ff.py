@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu.core.field import P25519 as P
 from spartan_tpu.core.field import Q
 from spartan_tpu.ff import fq as jfq

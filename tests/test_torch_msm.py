@@ -4,7 +4,8 @@ against the JAX package.
 * The lazy mod-p ops and the unified point addition against the TPU
   kernel's own ``_FpLazy`` and ``_padd`` (``curve/pallas_msm.py``), run
   eagerly with ``_roll`` patched to ``jnp.roll`` as the JAX package's
-  ``tests/test_pallas_msm.py`` does.
+  ``tests/test_pallas_msm.py`` does; their outputs are recorded in
+  ``tests/golden/port/msm-*.npz``.
 * ``row_msm_plain`` against ``spartan_tpu.core.edwards.msm`` at the
   shapes of ``tests/test_pallas_msm.py`` (tiny, R not a power of two,
   more lanes, R = 1), with the generators carried across from the JAX
@@ -17,17 +18,17 @@ import hashlib
 import random
 
 import jax  # noqa: F401
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from golden.port.record import load, to_ints
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu import commitments as jcom
 from spartan_tpu.core import edwards as jed
 from spartan_tpu.core import ristretto as jri
 from spartan_tpu.core.field import P25519 as P
 from spartan_tpu.core.field import Q
-from spartan_tpu.curve import pallas_msm as pm
 from spartan_tpu_torch import commitments, interop, native
 from spartan_tpu_torch.curve import edwards as ed
 from spartan_tpu_torch.curve import msm as dmsm
@@ -39,38 +40,23 @@ from spartan_tpu_torch.ff import limb
 M = (1 << 256) - 1
 
 
-def _blocks(vals):
-    """python ints -> the Pallas kernel's (H, W) 16-bit-limb block."""
-    a = np.zeros((pm.H, len(vals)), np.uint32)
-    for w, v in enumerate(vals):
-        for i in range(16):
-            a[i, w] = (v >> (16 * i)) & 0xFFFF
-    return jnp.asarray(a)
-
-
-def _block_ints(arr):
-    a = np.asarray(arr)
-    return [sum(int(a[i, w]) << (16 * i) for i in range(16))
-            for w in range(a.shape[1])]
-
-
-@pytest.fixture
-def fplazy(monkeypatch):
-    monkeypatch.setattr(pm, "_roll", lambda x, k, axis: jnp.roll(x, k, axis))
-    return pm._FpLazy(jnp.asarray(pm._CONSTS))
-
-
-def test_lazy_ops_match_tpu_kernel_fplazy(fplazy):
+def _lazy_inputs():
+    """Operands of the lazy ops, 2^256 - 1, p and p - 1 among them
+    (``record.py`` reads them too)."""
     rng = random.Random(21)
     A = [M, 0, P, 1] + [rng.randrange(1 << 256) for _ in range(4)]
     B = [M, M, P - 1, 0] + [rng.randrange(1 << 256) for _ in range(4)]
+    return A, B
+
+
+def test_lazy_ops_match_tpu_kernel_fplazy():
+    A, B = _lazy_inputs()
     a16, b16 = limb.from_int16(A), limb.from_int16(B)
-    ja, jb = _blocks(A), _blocks(B)
-    for ours, theirs in ((fp.mul16, fplazy.mul), (fp.add16, fplazy.add),
-                         (fp.sub16, fplazy.sub)):
+    jax_ops = load("msm-fplazy-ops")
+    for ours, theirs in ((fp.mul16, "mul"), (fp.add16, "add"),
+                         (fp.sub16, "sub")):
         got = [v % P for v in limb.to_int16(ours(a16, b16))]
-        want = [v % P for v in _block_ints(theirs(ja, jb))]
-        assert got == want
+        assert got == to_ints(jax_ops[theirs])
 
 
 def _points(n, tag=b"t"):
@@ -78,16 +64,18 @@ def _points(n, tag=b"t"):
             for i in range(n)]
 
 
-def test_point_add_matches_tpu_kernel_padd(fplazy):
-    """Same formula (add-2008-hwcd-3), so the same coordinates mod p."""
+def _padd_inputs():
+    """Three pairs of points, the last a doubling through the unified
+    formula (``record.py`` reads them too)."""
     p1, p2 = _points(3, b"a"), _points(3, b"b")
-    p2[2] = p1[2]  # a doubling through the unified formula
+    p2[2] = p1[2]
+    return p1, p2
 
-    def blocks(pts):
-        return tuple(_blocks([getattr(p, c) for p in pts]) for c in "XYZT")
 
-    want = [[v % P for v in _block_ints(c)]
-            for c in pm._padd(fplazy, blocks(p1), blocks(p2))]
+def test_point_add_matches_tpu_kernel_padd():
+    """Same formula (add-2008-hwcd-3), so the same coordinates mod p."""
+    p1, p2 = _padd_inputs()
+    want = to_ints(load("msm-padd")["coords"])
     got = ed.add(ed.from_host(p1), ed.from_host(p2))
     assert [fp.decode_to_ints(c) for c in got] == want
     for w, q in enumerate(ed.to_host(got)):

@@ -4,8 +4,11 @@ package's frozen wire bytes and its verifier.
 * At the golden shape (16, 16, 2), seed 424242, tape seed 31337 and
   ``Transcript(b"golden_nizk")`` (``tests/test_golden.py``), the port's
   digest and proof equal ``tests/golden/`` byte for byte.
-* The JAX package's reader and ``NIZK.verify`` accept the port's proof
-  (host-side there: no device compile).
+* The JAX package's reader accepts the port's proof, and its
+  ``NIZK.verify`` accepted the same bytes (recorded with its
+  transcript's next challenge in ``tests/golden/port/nizk-jax-verify.npz``:
+  the verify compiles XLA); the port's verifier leaves its transcript
+  where the JAX package's left it.
 * The port verifies the golden proof and rejects tampered copies, and
   its writer and reader round-trip.
 """
@@ -16,9 +19,9 @@ import jax  # noqa: F401
 import pytest
 import torch
 
-from spartan_tpu import api as japi
+from golden.port.record import load, to_ints
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu import serialize as jser
-from spartan_tpu.core.merlin import Transcript as JTranscript
 from spartan_tpu_torch import serialize as ser
 from spartan_tpu_torch.api import NIZK, Assignment, Instance, NIZKGens
 from spartan_tpu_torch.core.field import Q
@@ -54,12 +57,13 @@ def test_golden_nizk_bytes(port):
 
 
 def test_jax_package_verifies_port_proof(port):
-    inst, vars_a, inputs_a = japi.Instance.produce_synthetic_r1cs(
-        *SHAPE, seed=424242)
-    proof = jser.nizk_from_bytes(port[3])
-    proof.verify(inst, inputs_a, JTranscript(b"golden_nizk"),
-                 japi.NIZKGens(*SHAPE))
-    del vars_a
+    inst, inputs_a, gens, blob = port
+    jax_verify = load("nizk-jax-verify")
+    jser.nizk_from_bytes(blob)
+    assert blob == jax_verify["proof"].tobytes()
+    t = Transcript(b"golden_nizk")
+    ser.nizk_from_bytes(blob).verify(inst, inputs_a, t, gens)
+    assert t.challenge_scalar(b"post") == to_ints(jax_verify["post"])
 
 
 def test_port_verifies_golden_proof(port):

@@ -6,7 +6,8 @@ meshes of CPU devices.
   8 shards: every round's evals and the final scalars equal B2's
   unsharded chain (its plain version here), and sharded rounds ran.
 * ``shard_table``/``unshard_table`` round-trip, and the shards laid
-  end to end are what the JAX package's ``unshard_table`` takes.
+  end to end are what the JAX package's ``unshard_table`` takes (its
+  layout map recorded in ``tests/golden/port/parallel-unshard-*.npz``).
 * ``msm_rows_blocked`` and ``sharded_msm`` give the compressed points of
   the one-launch MSMs; ``psum_mod_q`` and ``evals_to_ints`` sum partial
   evals mod q.
@@ -16,19 +17,18 @@ meshes of CPU devices.
 * ``get_mesh()`` treats a one-device mesh as none, and the device-prover
   gates are off under a mesh.
 
-No JAX prove or compile: the JAX package is used for ``unshard_table``
-on one small array only.
+No JAX prove or compile.
 """
 
 import os
 
 import jax  # noqa: F401  (imported first in every port test file)
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spartan_tpu.parallel import mesh as jmesh
+from golden.port.record import load
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu_torch import interop
 from spartan_tpu_torch import serialize as ser
 from spartan_tpu_torch.api import NIZK, SNARK, Instance, NIZKGens, SNARKGens
@@ -161,8 +161,8 @@ def test_shard_unshard_roundtrip_and_jax_layout(d):
     assert torch.equal(pmesh.unshard_table(shards, "cpu"), tab)
     # the shards end to end are JAX's shard-major layout
     flat = interop.fq_to_jax(torch.cat(shards))
-    assert np.array_equal(
-        np.asarray(jmesh.unshard_table(jnp.asarray(flat), d)), jtab)
+    jax_unshard = load(f"parallel-unshard-{d}")["index"]
+    assert np.array_equal(flat.reshape(-1)[jax_unshard], jtab)
     # batched (B, n, 8): the hypercube axis n shards
     btab = torch.stack([tab, tab.flip(0)])
     bshards = pmesh.shard_table(btab, pmesh.Mesh(["cpu"] * d))

@@ -5,7 +5,8 @@ the grouped variable-base MSM, on the CPU.
   groups, empty and single-point groups, a group larger than the
   kernel's lanes, the scalars 0, 1 and q - 1 and the identity point.
 * Once against the JAX package's ``curve/edwards.py::scalar_mul`` with
-  ``sum_reduce`` (the XLA ops K5 replaces) at 4 points, one group.
+  ``sum_reduce`` (the XLA ops K5 replaces) at 4 points, one group: its
+  sum recorded in ``tests/golden/port/point-msm-scalar-mul.npz``.
 * The lane count and the argument checks the kernel relies on.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``,
@@ -15,12 +16,11 @@ The kernel itself runs only on the card (``tests/test_torch_cuda.py``,
 import random
 
 import jax  # noqa: F401
-import jax.numpy as jnp
 import pytest
 import torch
 
-from spartan_tpu.curve import edwards as jed
-from spartan_tpu.ff import limb as jlimb
+from golden.port.record import load, to_ints
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu_torch.core import edwards as hed
 from spartan_tpu_torch.core.field import P25519 as P
 from spartan_tpu_torch.core.field import Q
@@ -65,15 +65,16 @@ def test_point_msm_plain_equals_python_ints(sizes):
         assert _same_point([col[g] for col in cols], want), g
 
 
+def _scalar_mul_inputs():
+    """4 points and scalars (``record.py`` reads them too)."""
+    return _inputs(random.Random(4), 4)
+
+
 def test_point_msm_plain_equals_jax_scalar_mul():
-    rng = random.Random(4)
-    pts, ks = _inputs(rng, 4)
+    pts, ks = _scalar_mul_inputs()
     got = pm.point_msm(ed.stack(ed.from_host(pts)), limb.ints_to_limbs(ks),
                        [0, 4])
-    d = jed.from_host(pts)
-    s = jnp.asarray(jlimb.ints_to_limbs(ks))
-    want = jed.to_host(jed.PointArray(*(c[None] for c in jed.sum_reduce(
-        jed.scalar_mul(d, s)))))[0]
+    want = hed.Point(*to_ints(load("point-msm-scalar-mul")["point"]))
     assert _same_point([limb.limbs_to_ints(got[0, c])[0] for c in range(4)],
                        want)
 

@@ -1,18 +1,19 @@
 """The port's dense polynomials (``poly/dense.py``) and R1CS shape
 (``r1cs/shape.py``) against python-int arithmetic and the JAX package's
-R1CS shape, carried across through ``interop``.
+R1CS shape, carried across through ``interop`` (the JAX shape, its digest
+and an evaluation recorded in ``tests/golden/port/r1cs-synthetic.npz``).
 """
 
 import random
 
 import jax  # noqa: F401
-import numpy as np
 import pytest
 import torch  # noqa: F401
 
+from golden.port.record import load, to_ints
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu.core.field import Q
 from spartan_tpu.poly.commit import _eq_evals_host
-from spartan_tpu.r1cs.shape import R1CSShape as JShape
 from spartan_tpu_torch import interop
 from spartan_tpu_torch.poly import dense
 from spartan_tpu_torch.r1cs.shape import R1CSShape, SparseMatPolynomial
@@ -70,28 +71,34 @@ def test_spmv_and_eval_table_vs_ints():
 
 @pytest.fixture(scope="module")
 def jax_shape():
-    inst, vars_i, inputs_i = JShape.produce_synthetic(16, 16, 2, seed=99)
-    return inst, vars_i, inputs_i
+    """The JAX package's ``R1CSShape.produce_synthetic(16, 16, 2,
+    seed=99)``, recorded."""
+    return load("r1cs-synthetic")
+
+
+def _eval_point():
+    """(rx, ry) of the evaluation (``record.py`` reads it too)."""
+    return _ints(4, 7), _ints(5, 8)
 
 
 def test_shape_carried_across_from_jax(jax_shape):
-    jinst, vars_i, inputs_i = jax_shape
-    mats = [(m._rows_np, m._cols_np, np.asarray(m.vals))
-            for m in (jinst.A, jinst.B, jinst.C)]
+    j = jax_shape
+    vars_i, inputs_i = to_ints(j["vars"]), to_ints(j["inputs"])
+    mats = [(j[f"{m}_rows"], j[f"{m}_cols"], j[f"{m}_vals"]) for m in "ABC"]
     ours = interop.shape_from_jax(16, 16, 2, mats, "cpu")
-    assert ours.get_digest() == jinst.get_digest()
+    assert ours.get_digest() == j["digest"].tobytes()
     assert ours.is_sat(vars_i, inputs_i)
     assert not ours.is_sat([(vars_i[0] + 1) % Q] + vars_i[1:], inputs_i)
-    rx, ry = _ints(4, 7), _ints(5, 8)
-    assert ours.evaluate(rx, ry) == jinst.evaluate(rx, ry)
+    assert ours.evaluate(*_eval_point()) == tuple(to_ints(j["evaluated"]))
 
 
 def test_synthetic_instance_matches_jax(jax_shape):
-    jinst, vars_i, inputs_i = jax_shape
+    j = jax_shape
+    vars_i, inputs_i = to_ints(j["vars"]), to_ints(j["inputs"])
     ours, v, i = R1CSShape.produce_synthetic(16, 16, 2, seed=99,
                                              device="cpu")
     assert (v, i) == (vars_i, inputs_i)
-    assert ours.get_digest() == jinst.get_digest()
+    assert ours.get_digest() == j["digest"].tobytes()
     z = v + [1] + i + [0] * (16 - 3)
     Az, Bz, Cz = (dense.to_ints(t) for t in
                   ours.multiply_vec(dense.from_ints(z, "cpu")))

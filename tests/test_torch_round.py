@@ -3,22 +3,22 @@ three modes, against the JAX package's XLA round step: ``dense.
 bound_var_top`` then ``sumcheck._evals_cubic_additive`` / ``_evals_quad``
 — the path that ``tests/test_pallas.py`` holds the Pallas kernel to.
 
-The JAX functions compile once per shape (seconds each on the CPU), so
-they run at three small shapes only; the larger shape and a chain of
-rounds are checked against python-int arithmetic.  Exact: equality.
+The JAX step's outputs at three small shapes are recorded in
+``tests/golden/port/round-*.npz`` (``record.py``); the larger shape and a
+chain of rounds are checked against python-int arithmetic.  Exact:
+equality.
 """
 
 import random
 
 import jax  # noqa: F401
-import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from golden.port.record import load, to_ints
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu.core.field import Q
-from spartan_tpu.ff import fq as jfq
-from spartan_tpu.poly import dense as jdense
-from spartan_tpu.protocols import sumcheck as jsc
 from spartan_tpu_torch import interop
 from spartan_tpu_torch.ff import fq
 from spartan_tpu_torch.ff import round_kernel as rk
@@ -34,33 +34,30 @@ def _ours(ints):
     return [fq.encode_ints(t) for t in ints]
 
 
-def _jax(ints):
-    return [jnp.asarray(jfq.encode_ints_mont(t)) for t in ints]
+def _round_inputs(ntab, n):
+    """The tables and the challenge r (``record.py`` reads them too)."""
+    return _tables(ntab, n, seed=ntab * 1000 + n), 987654321
 
 
 @pytest.mark.parametrize("ntab,n", [(4, 8), (4, 64), (2, 8)])
 def test_fold_evals_plain_matches_jax_round(ntab, n):
-    ints = _tables(ntab, n, seed=ntab * 1000 + n)
-    r = 987654321
-    jr = jnp.asarray(jfq.encode_ints_mont([r])[0])
-    evals_fn = jsc._evals_cubic_additive if ntab == 4 else jsc._evals_quad
+    ints, r = _round_inputs(ntab, n)
+    jax_round = load(f"round-{ntab}-{n}")
     k = 3 if ntab == 4 else 2
 
     # round 0: evals over the tables themselves
     _, es = rk.fold_evals(_ours(ints), None, "evals")
-    want = [jfq.decode_to_ints(e[None])[0] for e in evals_fn(*_jax(ints))]
-    assert fq.decode_to_ints(es)[:k] == want
+    assert fq.decode_to_ints(es)[:k] == to_ints(jax_round["evals"])
 
     # fold by r, then the next round's evals; and the fold alone
-    folded = [jdense.bound_var_top(T, jr) for T in _jax(ints)]
-    want_t = [jfq.decode_to_ints(T) for T in folded]
-    want_e = [jfq.decode_to_ints(e[None])[0] for e in evals_fn(*folded)]
+    want_t = to_ints(jax_round["tables"])
+    want_e = to_ints(jax_round["folded_evals"])
     tabs, es = rk.fold_evals(_ours(ints), r, "fold_evals")
     assert [fq.decode_to_ints(t) for t in tabs] == want_t
     assert fq.decode_to_ints(es)[:k] == want_e
     # the port's tables carry across to the JAX layout byte for byte
-    for t, T in zip(tabs, folded):
-        assert (interop.fq_to_jax(t) == jnp.asarray(T)).all()
+    for t, T in zip(tabs, jax_round["folded"]):
+        assert np.array_equal(interop.fq_to_jax(t), T)
     tabs, es = rk.fold_evals(_ours(ints), r, "fold")
     assert [fq.decode_to_ints(t) for t in tabs] == want_t and es is None
 

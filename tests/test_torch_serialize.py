@@ -18,6 +18,7 @@ import os
 import jax  # noqa: F401  (imported first in every port test file)
 import pytest
 
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu import serialize as jser
 from spartan_tpu.protocols import product_tree as jpt
 from spartan_tpu.protocols import sumcheck as jsc

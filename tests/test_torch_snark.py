@@ -15,6 +15,7 @@ import jax  # noqa: F401
 import pytest
 import torch
 
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu_torch import serialize as ser
 from spartan_tpu_torch.api import SNARK, Assignment, Instance, SNARKGens
 from spartan_tpu_torch.core.field import Q

@@ -4,13 +4,15 @@ ints.
 * Kernel B2's batched 3-table (cubic_prod) mode, plain version, in all
   three modes against the JAX product-tree round step
   (``product_tree._evals_cubic_batched``, ``_bound_var_top_batched``) at
-  one tiny shape, and along a chain of rounds against python ints.
-  Exact: equality.
+  one tiny shape, its outputs recorded in
+  ``tests/golden/port/spark-cubic-prod.npz``, and along a chain of
+  rounds against python ints.  Exact: equality.
 * ``AddrTimestamps`` against the JAX package's (its numpy part only: the
   JAX device tables are not built, so nothing compiles).
 * ``interop.dense_rep_from_jax`` against the port's own
   ``multi_sparse_to_dense_rep`` on the golden instance, and both against
-  the JAX package's combined tables.
+  the JAX package's combined tables (its dense representation recorded
+  in ``tests/golden/port/spark-dense-rep.npz``).
 * ``ProductCircuitEvalProofBatched`` and the clear-text
   ``SumcheckInstanceProof`` prove -> verify on random tables, the final
   claims held against direct evaluations.
@@ -19,14 +21,12 @@ ints.
 import random
 
 import jax  # noqa: F401
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spartan_tpu import api as japi
-from spartan_tpu.ff import fq as jfq
-from spartan_tpu.protocols import product_tree as jpt
+from golden.port.record import load, to_ints
+from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu.protocols import spark as jspark
 from spartan_tpu_torch import interop
 from spartan_tpu_torch.api import Instance
@@ -56,40 +56,34 @@ def _ours(tab):
     return fq.encode_ints([v for row in tab for v in row]).reshape(b, n, 8)
 
 
-def _jax(tab):
-    b, n = len(tab), len(tab[0])
-    flat = jfq.encode_ints_mont([v for row in tab for v in row])
-    return jnp.asarray(flat).reshape(b, n, 16)
-
-
 def _decoded(t):
     """(B, n, 8) or (3, B, 8) -> nested lists of ints per leading index."""
     return [fq.decode_to_ints(x) for x in t]
 
 
-def _jdecoded(t):
-    return [jfq.decode_to_ints(x) for x in t]
+def _cubic_prod_inputs():
+    """Three (5, 8) tables and the challenge r (``record.py`` reads them
+    too): 5 instances, a batch no JAX test compiles these functions at."""
+    return [_ints((5, 8), seed=k) for k in range(3)], 987654321
 
 
 def test_cubic_prod_plain_matches_jax_round():
-    # 5 instances: a batch no JAX test compiles these functions at
-    ints = [_ints((5, 8), seed=k) for k in range(3)]
-    r = 987654321
-    r_m = jnp.asarray(jfq.encode_ints_mont([r])[0])
-    ours, jax_t = [_ours(t) for t in ints], [_jax(t) for t in ints]
+    ints, r = _cubic_prod_inputs()
+    ours = [_ours(t) for t in ints]
+    jax_round = load("spark-cubic-prod")
+    folded = to_ints(jax_round["tables"])
 
     # round 0: evals over the tables themselves
     _, es = rk.fold_evals_plain(ours, None, "evals")
-    assert _decoded(es) == _jdecoded(jpt._evals_cubic_batched(*jax_t))
+    assert _decoded(es) == to_ints(jax_round["evals"])
 
     # the fold alone, and the fold then the next round's evals
-    folded = [jpt._bound_var_top_batched(T, r_m) for T in jax_t]
     tabs, es = rk.fold_evals_plain(ours, r, "fold")
     assert es is None
-    assert [_decoded(t) for t in tabs] == [_jdecoded(t) for t in folded]
+    assert [_decoded(t) for t in tabs] == folded
     tabs, es = rk.fold_evals_plain(ours, r, "fold_evals")
-    assert [_decoded(t) for t in tabs] == [_jdecoded(t) for t in folded]
-    assert _decoded(es) == _jdecoded(jpt._evals_cubic_batched(*folded))
+    assert [_decoded(t) for t in tabs] == folded
+    assert _decoded(es) == to_ints(jax_round["folded_evals"])
 
 
 def _py_fold(T, r):
@@ -154,17 +148,15 @@ def test_addr_timestamps_match_jax(monkeypatch):
 
 
 def test_dense_rep_from_jax_matches_the_ports_own():
-    jinst, _, _ = japi.Instance.produce_synthetic_r1cs(16, 16, 2,
-                                                       seed=424242)
-    j = jspark.multi_sparse_to_dense_rep(
-        [jinst.inst.A, jinst.inst.B, jinst.inst.C])
+    j = load("spark-dense-rep")
     inst, _, _ = Instance.produce_synthetic_r1cs(16, 16, 2, seed=424242,
                                                  device="cpu")
     own = spark.multi_sparse_to_dense_rep([inst.inst.A, inst.inst.B,
                                            inst.inst.C])
     got = interop.dense_rep_from_jax(
-        *((t.ops_addr_int, t.read_ts_int, t.audit_ts_int)
-          for t in (j.row, j.col)), np.asarray(j.val), j.batch_size, "cpu")
+        *((j[f"{t}_ops_addr_int"], j[f"{t}_read_ts_int"],
+           j[f"{t}_audit_ts_int"]) for t in ("row", "col")),
+        j["val"], int(j["batch_size"]), "cpu")
     assert got.batch_size == own.batch_size == 3
     for a, b in ((got.row, own.row), (got.col, own.col)):
         for name in ("ops_addr_int", "read_ts_int", "audit_ts_int"):
@@ -174,8 +166,8 @@ def test_dense_rep_from_jax_matches_the_ports_own():
     assert torch.equal(got.val, own.val)
     assert torch.equal(got.comb_ops, own.comb_ops)
     assert torch.equal(got.comb_mem, own.comb_mem)
-    assert torch.equal(own.comb_ops, interop.fq_from_jax(j.comb_ops))
-    assert torch.equal(own.comb_mem, interop.fq_from_jax(j.comb_mem))
+    assert torch.equal(own.comb_ops, interop.fq_from_jax(j["comb_ops"]))
+    assert torch.equal(own.comb_mem, interop.fq_from_jax(j["comb_mem"]))
 
 
 def _evaluate(tab_ints, r):
