@@ -61,6 +61,9 @@ a CUDA graph beside its bound, its chain floor and the time of its
 earlier one-thread-a-point design; K6, the
 bullet round's scalar step (``csrc/bullet_step.cu``), in every mode at
 n = 1,024, 2,048 and 4,096, the fold also at u = 1, q - 1 and 2^200;
+the elementwise Fq kernel's Montgomery map (``csrc/fq_elementwise.cu``)
+against its plain version at 1, 5, 513 and 2^20 elements, also into a
+slice of a larger table, timed at 2^20 beside its bound;
 forced launch failures of K5 and K4 and forced build failures of K6
 and K3, each of which must raise with no plain version run in its
 place; then a host round and a device round timed at n = 2^1 ... 2^12
@@ -81,7 +84,7 @@ bit at the first sharded shapes, 4 launches at n/4 timed beside one at
 n); and the two-tier collectives on the card listed 8 times as (2
 hosts, 4 devices) against python ints and the host MSM (``dcn
 {...}``).  It ends with a JSON line per kernel (B2's batched mode its
-own line, K3, K4, K5 and K6 theirs), the card's line from nvidia-smi
+own line, K3, K4, K5, K6 and the Montgomery map theirs), the card's line from nvidia-smi
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; with no card it exits 2 before printing any result.  All inputs are made from fixed
 seeds.
@@ -171,7 +174,7 @@ def build_kernels() -> None:
         return path, report, time.perf_counter() - t0
 
     names = ["row_msm", "fold_evals", "keccak", "ristretto", "point_msm",
-             "bullet_step"]
+             "bullet_step", "fq_elementwise"]
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = {n: pool.submit(timed, n) for n in names}
         for name in names:
@@ -422,6 +425,71 @@ def check_fold_evals(dev, gen, cases) -> dict:
     return result
 
 
+# the elementwise Fq kernel's Montgomery map: small and ragged sizes, and
+# the witness of a 2^20 prove (timed); TO_MONT_SETS tables in turn, so
+# that every timed launch reads its input from device memory, not L2
+TO_MONT_CASES = [1, 5, 513, 1 << LOG_N]
+TO_MONT_SETS = 4
+
+
+def to_mont_bound(n: int) -> dict:
+    """Bytes: n elements read and n written; ops: one Montgomery product
+    an element."""
+    t_bytes = n * 64 / HBM_BYTES_S * 1e3
+    t_ops = n * FQ_MUL_WIDE * IMAD_PER_WIDE / IMAD_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def check_to_mont(dev, gen) -> dict:
+    """The elementwise kernel's TO_MONT mode (``fq.to_mont``) against its
+    plain version at TO_MONT_CASES, with 0, 1, q - 1 and 2^252 among the
+    values, and into a slice of a larger table as z takes the witness;
+    timed at 2^LOG_N in a CUDA graph and launched one by one."""
+    import torch
+
+    from spartan_tpu_torch.core.field import Q
+    from spartan_tpu_torch.ff import fq
+
+    result = {}
+    for n in TO_MONT_CASES:
+        a = with_edges(rand_elems(gen, n, dev), [1 << 252, 0, 1, Q - 1])
+        t0 = time.perf_counter()
+        want = fq.to_mont_plain(a)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        z = rand_elems(gen, 2 * n + 1, dev)
+        keep = z.clone()
+        fq.to_mont(a, out=z[1:n + 1])
+        torch.cuda.synchronize()
+        err = max(max_abs_err(fq.to_mont(a), want),
+                  max_abs_err(z[1:n + 1], want))
+        torch.cuda.synchronize()
+        if err != 0 or not (torch.equal(z[:1], keep[:1])
+                            and torch.equal(z[n + 1:], keep[n + 1:])):
+            raise AssertionError(f"to_mont differs from its plain version "
+                                 f"at n {n}, or wrote outside its slice")
+        log(f"to_mont n {n}: max_abs_err {err}, plain {plain_ms:.2f} ms")
+        if n == TO_MONT_CASES[-1]:
+            ins = [a] + [rand_elems(gen, n, dev)
+                         for _ in range(TO_MONT_SETS - 1)]
+            outs = [torch.empty_like(x) for x in ins]
+
+            def launches():
+                for x, o in zip(ins, outs):
+                    fq.to_mont(x, out=o)
+
+            ms = graph_ms(launches, 10) / TO_MONT_SETS
+            eager = cuda_ms(launches, 10) / TO_MONT_SETS
+            bound = to_mont_bound(n)
+            log(f"to_mont n {n}: {ms:.4f} ms in a CUDA graph ({eager:.4f} "
+                f"ms launched one by one), bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}), plain {plain_ms:.2f} ms")
+            result = dict(shape=[n], ms=ms, eager_ms=eager,
+                          plain_ms=plain_ms, max_abs_err=err, **bound)
+    return result
+
+
 def round_chain(fold, tabs, rs):
     """One sum-check phase's launches: evals, then fold_evals per round,
     the last round a fold.  Returns every round's outputs."""
@@ -652,8 +720,8 @@ def new_segments(mem0: dict) -> list[int]:
 
 
 def commit_profile(dev, gens) -> dict:
-    """The 2^20 prove's witness commitment (``poly.commit.commit``, the
-    ``polycommit`` phase's device part) once more on random witness
+    """The 2^20 prove's witness commitment (``poly.commit.commit_canonical``,
+    the ``polycommit`` phase's device part) once more on random witness
     values, under ``torch.profiler``: the wall of the call beside the
     device time of each kernel in it, so that the spans
     ``commit::msm_rows`` and ``commit::blinds`` can be read as kernel
@@ -666,14 +734,14 @@ def commit_profile(dev, gens) -> dict:
     gens_pc = gens.gens_r1cs_sat.gens_pc
     Z = rand_elems(torch.Generator().manual_seed(5), 1 << LOG_N, dev)
     mem0 = torch.cuda.memory_stats()
-    pc.commit(Z, gens_pc, None)  # warm-up
+    pc.commit_canonical(Z, gens_pc, None)  # warm-up
     torch.cuda.synchronize()
     first_mallocs = new_segments(mem0)
     mem0 = torch.cuda.memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pc.commit(Z, gens_pc, None)
+        pc.commit_canonical(Z, gens_pc, None)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     mallocs = {"first_call": first_mallocs, "profiled": new_segments(mem0)}
@@ -924,10 +992,11 @@ def reset_counts() -> None:
     from spartan_tpu_torch.curve import ristretto as dri
     from spartan_tpu_torch.curve import row_msm as rm
     from spartan_tpu_torch.ff import bullet_kernel as bk
+    from spartan_tpu_torch.ff import fq
     from spartan_tpu_torch.ff import round_kernel as rk
     from spartan_tpu_torch.transcript import device as dt
 
-    rm.row_msm.launches = pm.point_msm.launches = 0
+    rm.row_msm.launches = pm.point_msm.launches = fq.to_mont.launches = 0
     rk.fold_evals.launches.clear()
     rk.fold_evals.launches_device_r = 0
     bk.bullet_step.launches.clear()
@@ -943,6 +1012,7 @@ def read_counts() -> dict:
     from spartan_tpu_torch.curve import ristretto as dri
     from spartan_tpu_torch.curve import row_msm as rm
     from spartan_tpu_torch.ff import bullet_kernel as bk
+    from spartan_tpu_torch.ff import fq
     from spartan_tpu_torch.ff import round_kernel as rk
     from spartan_tpu_torch.transcript import device as dt
 
@@ -962,6 +1032,7 @@ def read_counts() -> dict:
             "point_msm": pm.point_msm.launches,
             "bullet_step": sum(bk.bullet_step.launches.values()),
             "bullet_step_by_mode": dict(bk.bullet_step.launches),
+            "to_mont": fq.to_mont.launches,
             "plain_calls_on_card": plain, "plain_cuda_calls": calls}
 
 
@@ -1002,7 +1073,7 @@ def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
     phases = {k: timer.records[k] for k in NIZK_SPANS}
     if min(launches["row_msm"], launches["fold_evals"],
            launches["point_msm"], launches["bullet_step"],
-           launches["ristretto_compress"]) <= 0:
+           launches["ristretto_compress"], launches["to_mont"]) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
 
     blob = ser.nizk_to_bytes(nizk)
@@ -2158,6 +2229,7 @@ def main() -> int:
     fold["device_r"] = check_fold_evals_device_r(dev, gen)
     k5 = check_point_msm(dev, gen)
     k6 = check_bullet_step(dev, gen)
+    k7 = check_to_mont(dev, gen)
     check_no_fallback(dev, gen)
     rounds = bullet_round_times(dev)
     golden(dev)
@@ -2208,7 +2280,7 @@ def main() -> int:
                    sharded["snark_prove"]["launches"][name]}
         for name in ("row_msm", "fold_evals", "fold_evals_device_r",
                      "strobe_step", "ristretto_compress", "point_msm",
-                     "bullet_step")}
+                     "bullet_step", "to_mont")}
     timed = PROD_TIMED + ("fold_evals",)
     kernels = [
         dict(name="row_msm", route="cuda",
@@ -2270,6 +2342,10 @@ def main() -> int:
              bound_ms=k6["fold_2048"]["bound_ms"],
              bound_by=k6["fold_2048"]["bound_by"], modes=k6,
              bullet_rounds=rounds, host_rounds=host_rounds),
+        dict(name="fq_elementwise[to_mont]", route="cuda",
+             source="spartan_tpu_torch/csrc/fq_elementwise.cu",
+             replaces=None, launches=summary["launches"]["to_mont"],
+             launches_by_path=by_path["to_mont"], library_ms=None, **k7),
     ]
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

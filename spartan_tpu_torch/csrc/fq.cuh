@@ -158,6 +158,20 @@ static __device__ __forceinline__ void fq_mul(uint32_t r[8],
   for (int j = 0; j < 8; j++) r[j] = ra[0][j];
 }
 
+// N Montgomery maps side by side: r[n] = a[n] * R mod q, canonical, for
+// any a[n] < 2^256 (a product by R^2: R^2 < q is the first operand, so
+// a[n] may take any value fq_mul_n allows its second)
+template <int N>
+static __device__ __forceinline__ void fq_to_mont_n(uint32_t (*r)[8],
+                                                    const uint32_t (*a)[8]) {
+  uint32_t r2[N][8];
+#pragma unroll
+  for (int n = 0; n < N; n++)
+#pragma unroll
+    for (int j = 0; j < 8; j++) r2[n][j] = FQ_R2[j];
+  fq_mul_n<N>(r, (const uint32_t(*)[8])r2, a);
+}
+
 // r = a + b unreduced, for a sum the caller keeps below 2^256 (a lazy
 // second operand of fq_mul)
 static __device__ __forceinline__ void fq_add_lazy(uint32_t r[8],

@@ -11,16 +11,21 @@ words: each step needs only the low limb exact (t mod 2^16 equals limb
 columns are never carried in full until the end.
 
 Device kernels carry their own copy of this arithmetic in
-``csrc/fq.cuh`` (8 x 32-bit limbs, CIOS).
+``csrc/fq.cuh`` (8 x 32-bit limbs, CIOS).  ``to_mont`` launches the
+elementwise kernel (``csrc/fq_elementwise.cu``) for tensors on the card
+and runs ``to_mont_plain`` for tensors on the CPU; there is no fallback
+from one to the other.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import time
 
 import torch
 
+from .. import _build
 from ..core.field import Q
 from ..utils import rt
 from . import limb
@@ -134,9 +139,59 @@ def square(a: torch.Tensor) -> torch.Tensor:
     return mul(a, a)
 
 
-def to_mont(a: torch.Tensor) -> torch.Tensor:
+def to_mont_plain(a: torch.Tensor) -> torch.Tensor:
+    """aR mod q: the plain PyTorch version of the kernel's TO_MONT mode
+    (the same canonical words)."""
     r2 = limb.const16(R2_INT, a.device)
     return _elementwise(lambda x: mul16(x, r2), a)
+
+
+_MODES = {"to_mont": 0}  # csrc/fq_elementwise.cu's MODE_*
+
+
+def _declare(lib) -> None:
+    p = ctypes.c_void_p
+    lib.fq_elementwise_launch.argtypes = [p, p, ctypes.c_long, ctypes.c_int,
+                                          p]
+    lib.fq_elementwise_launch.restype = ctypes.c_int
+
+
+def to_mont(a: torch.Tensor, out: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """aR mod q for (..., 8) values below 2^256 (canonical scalars):
+    the elementwise kernel on the card, ``to_mont_plain`` on the CPU.
+    ``out``, a contiguous int32 tensor of ``a``'s shape on its device
+    that does not overlap it (such as a slice of a larger table),
+    receives the result and is returned."""
+    if a.dtype != torch.int32 or a.shape[-1:] != (limb.NWORDS,):
+        raise ValueError(f"to_mont: (..., 8) int32 values, got "
+                         f"{tuple(a.shape)} {a.dtype}")
+    if out is not None and (out.shape != a.shape or out.dtype != a.dtype
+                            or out.device != a.device
+                            or not out.is_contiguous()):
+        raise ValueError("to_mont: out must be a contiguous int32 tensor of "
+                         "the input's shape on its device")
+    if a.device.type == "cpu":
+        res = to_mont_plain(a)
+        return res if out is None else out.copy_(res)
+    if a.device.type != "cuda":
+        raise ValueError(f"to_mont: unsupported device {a.device}")
+    lib = _build.load("fq_elementwise", _declare)
+    a = a.contiguous()
+    if out is None:
+        out = torch.empty_like(a)
+    _build.check_aligned("to_mont", a, out)
+    n = a.numel() // limb.NWORDS
+    if n:
+        rc = lib.fq_elementwise_launch(a.data_ptr(), out.data_ptr(), n,
+                                       _MODES["to_mont"],
+                                       _build.stream_handle(a.device))
+        to_mont.launches += 1
+        _build.check(rc, "to_mont")
+    return out
+
+
+to_mont.launches = 0
 
 
 def from_mont(a: torch.Tensor) -> torch.Tensor:
@@ -175,9 +230,13 @@ def dot_mod(a: torch.Tensor, b: torch.Tensor, dim: int = 0) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def encode_ints(xs, device=None) -> torch.Tensor:
-    """Canonical python ints -> Montgomery storage tensor (the Montgomery
-    map is applied on the host: one bulk int pass, no device round)."""
-    return limb.ints_to_limbs([(x % Q) * R % Q for x in xs], device)
+    """Python ints -> Montgomery storage tensor (the Montgomery map is
+    applied on the host, for short vectors: no device round; ``utils.rt``
+    counts the elements).  A long table goes up canonical
+    (``limb.ints_to_limbs``) and through ``to_mont`` on its device."""
+    mont = [(x % Q) * R % Q for x in xs]
+    rt.count_encoded(len(mont))
+    return limb.ints_to_limbs(mont, device)
 
 
 def decode_to_ints(a: torch.Tensor) -> list[int]:

@@ -15,6 +15,8 @@ for signed borrows, so carries are resolved only where needed.
 
 from __future__ import annotations
 
+from itertools import repeat
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -34,10 +36,11 @@ _OUTER_MAX = 1 << 20
 # ---------------------------------------------------------------------------
 
 def ints_to_limbs(xs, device=None) -> torch.Tensor:
-    """Python ints in [0, 2^256) -> (len, 8) int32 storage limbs."""
+    """Python ints in [0, 2^256) -> (len, 8) int32 storage limbs, in one
+    bulk pass (``int.to_bytes`` mapped over ``xs``, one join)."""
     if len(xs) == 0:
         return torch.zeros((0, NWORDS), dtype=torch.int32, device=device)
-    raw = b"".join(int(x).to_bytes(32, "little") for x in xs)
+    raw = b"".join(map(int.to_bytes, xs, repeat(32), repeat("little")))
     arr = np.frombuffer(raw, dtype="<i4").reshape(len(xs), NWORDS)
     return torch.from_numpy(arr.copy()).to(device)
 

@@ -57,7 +57,16 @@ def commit(Z: torch.Tensor, gens: PolyCommitmentGens,
            tape: RandomTape | None) -> tuple[PolyCommitment, list[int]]:
     """DensePolynomial::commit (dense_mlpoly.rs:164-204).  Z: (n, 8)
     Montgomery table, n = 2^ell.  Returns (commitment, blinds)."""
-    n = Z.shape[0]
+    return commit_canonical(fq.from_mont(Z), gens, tape)
+
+
+def commit_canonical(S: torch.Tensor, gens: PolyCommitmentGens,
+                     tape: RandomTape | None
+                     ) -> tuple[PolyCommitment, list[int]]:
+    """``commit`` of the table whose canonical scalars are S ((n, 8),
+    n = 2^ell, B1's input as it is): the row-MSM, blinds times h and the
+    compression."""
+    n = S.shape[0]
     ell = n.bit_length() - 1
     assert 1 << ell == n
     left, right = dense.factored_lens(ell)
@@ -69,13 +78,13 @@ def commit(Z: torch.Tensor, gens: PolyCommitmentGens,
     g = gens.gens.gens_n
 
     t = Timer("commit::msm_rows")
-    scalars = fq.from_mont(Z).reshape(L_size, R_size, limb.NWORDS)
+    scalars = S.reshape(L_size, R_size, limb.NWORDS)
     rows = msm_rows_blocked(scalars, g, pctx.get_mesh())  # (L_size,)
     t.stop()
     t = Timer("commit::blinds")
     # blinds * h: the same row-MSM kernel with R = 1 and generator h
-    blind_limbs = limb.ints_to_limbs(blinds, Z.device)
-    bh = ded.unstack(row_msm(blind_limbs[:, None, :], g.msm_table_h(Z.device)))
+    blind_limbs = limb.ints_to_limbs(blinds, S.device)
+    bh = ded.unstack(row_msm(blind_limbs[:, None, :], g.msm_table_h(S.device)))
     rows = ded.add(rows, bh)
     t.stop()
     t = Timer("commit::compress")

@@ -3,8 +3,10 @@
 
 Prover pipeline (transcript order reproduced exactly from
 r1csproof.rs:144-349):
-  1. commit witness polynomial (row-MSM kernel + batch compress)  [device]
-  2. tau challenge; eq-table expand; SpMV -> Az,Bz,Cz             [device]
+  1. upload the witness once, canonical; commit to it
+     (row-MSM kernel + batch compress)                            [device]
+  2. z on the device (the Montgomery map kernel writes the witness
+     into it); tau challenge; eq-table expand; SpMV -> Az,Bz,Cz   [device]
   3. phase-1 ZK sumcheck of sum eq(tau,x)(Az*Bz - Cz) = 0        [B2 rounds]
   4. claim-linking sigma proofs (Knowledge/Product/Equality)      [host]
   5. r_A,r_B,r_C combine; transpose-SpMV eval tables              [device]
@@ -17,12 +19,14 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from ..commitments import MultiCommitGens, commit_scalar
 from ..core import ristretto as hri
 from ..core.field import Q
 from ..core.merlin import RandomTape, Transcript
 from ..curve.msm import vmsm
-from ..ff import fq
+from ..ff import fq, limb
 from ..poly import commit as poly_commit
 from ..poly import dense
 from ..poly.commit import PolyCommitment, PolyCommitmentGens, PolyEvalProof
@@ -48,6 +52,21 @@ class R1CSGens:
         num_poly_vars = _log2(num_vars)
         self.gens_pc = PolyCommitmentGens(num_poly_vars, label)
         self.gens_sc = R1CSSumcheckGens(label, self.gens_pc.gens.gens_1)
+
+
+def witness_z(vars_canon: torch.Tensor, input_ints: list[int]
+              ) -> torch.Tensor:
+    """z = (vars, 1, inputs, 0, ..., 0), 2 num_vars entries
+    (r1csproof.rs:178-185), as a Montgomery table on the device of the
+    witness's canonical scalars ``vars_canon`` ((num_vars, 8)): the vars
+    mapped there straight into z's first half (``fq.to_mont``), the
+    constant 1 and the inputs mapped on the host."""
+    n = vars_canon.shape[0]
+    z = torch.zeros((2 * n, limb.NWORDS), dtype=torch.int32,
+                    device=vars_canon.device)
+    fq.to_mont(vars_canon, out=z[:n])
+    z[n:n + 1 + len(input_ints)] = fq.encode_ints([1, *input_ints], z.device)
+    return z
 
 
 @dataclass
@@ -76,21 +95,21 @@ class R1CSProof:
         transcript.append_scalar_vector(b"input", input_ints)
 
         t_commit = Timer("polycommit")
-        poly_vars = dense.from_ints(vars_ints, dev)
-        comm_vars, blinds_vars = poly_commit.commit(poly_vars, gens.gens_pc, tape)
+        # the witness crosses to the device once, as canonical scalars:
+        # B1 commits to them as they are, and phase one maps them into z
+        vars_canon = limb.ints_to_limbs(vars_ints, dev)
+        comm_vars, blinds_vars = poly_commit.commit_canonical(
+            vars_canon, gens.gens_pc, tape)
         comm_vars.append_to_transcript(b"poly_commitment", transcript)
         t_commit.stop()
 
         t_sc1 = Timer("prove_sc_phase_one")
-        num_vars, num_inputs = len(vars_ints), len(input_ints)
-        z_ints = (
-            list(vars_ints) + [1] + list(input_ints)
-            + [0] * (num_vars - num_inputs - 1)
-        )
-        z = dense.from_ints(z_ints, dev)
+        z = witness_z(vars_canon, input_ints)
+        del vars_canon
+        poly_vars = z[:len(vars_ints)]  # the witness's Montgomery table
 
         num_rounds_x = _log2(inst.num_cons)
-        num_rounds_y = _log2(len(z_ints))
+        num_rounds_y = _log2(z.shape[0])
         tau = transcript.challenge_vector(b"challenge_tau", num_rounds_x)
         poly_tau = dense.eq_evals(tau, dev)
         poly_Az, poly_Bz, poly_Cz = inst.multiply_vec(z)
@@ -140,7 +159,7 @@ class R1CSProof:
 
         evals_rx = dense.eq_evals(rx, dev)
         evals_A, evals_B, evals_C = inst.compute_eval_table_sparse(
-            evals_rx, len(z_ints))
+            evals_rx, z.shape[0])
         rA_m, rB_m, rC_m = (fq.mont_limbs(x, dev) for x in (r_A, r_B, r_C))
         evals_ABC = fq.add(
             fq.add(fq.mul(evals_A, rA_m), fq.mul(evals_B, rB_m)),

@@ -8,6 +8,11 @@ measured there.  ``utils.timer.Timer`` prints the per-phase delta when
 profiling is on
 (SPARTAN_TPU_PROFILE=1); otherwise the cost is two float adds per
 fetch.
+
+``encoded`` counts the field elements that ``ff.fq.encode_ints``
+Montgomery-maps on the host (python ints, one at a time): short vectors
+and scalars only, where a long table goes up canonical and is mapped on
+its device.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import time
 
 fetches: int = 0
 stall_s: float = 0.0
+encoded: int = 0
 
 
 def record(dt: float) -> None:
@@ -24,6 +30,12 @@ def record(dt: float) -> None:
     global fetches, stall_s
     fetches += 1
     stall_s += dt
+
+
+def count_encoded(n: int) -> None:
+    """``n`` more field elements Montgomery-mapped on the host."""
+    global encoded
+    encoded += n
 
 
 def snapshot() -> tuple[int, float]:

@@ -99,6 +99,9 @@ int64_t h_divsteps_59(int64_t zeta, uint64_t f0, uint64_t g0, int64_t* t) {
   t[0] = m.u; t[1] = m.v; t[2] = m.q; t[3] = m.r; return z;
 }
 void h_fq_from_mont(uint32_t* r, const uint32_t* x) { fq_from_mont(r, x); }
+void h_fq_to_mont2(uint32_t* r, const uint32_t* x) {
+  fq_to_mont_n<2>((uint32_t(*)[8])r, (const uint32_t(*)[8])x);
+}
 void h_fq_from_bytes_wide(uint32_t* r, const uint8_t* b) {
   fq_from_bytes_wide(r, b);
 }
@@ -372,13 +375,19 @@ def test_divsteps_batch(lib, width):
 
 def test_fq_inverse_and_conversions(lib):
     """K6's inverse of a Montgomery residue (safegcd, then one product by
-    R^3), a residue's canonical value and the Montgomery form of 64
-    challenge bytes."""
+    R^3), a residue's canonical value, the Montgomery map of two values
+    side by side (the elementwise kernel's, also of values >= q) and the
+    Montgomery form of 64 challenge bytes."""
     rng = random.Random(19)
     for x in (1, 2, Q - 1, rng.randrange(Q), rng.randrange(Q)):
         assert _op(lib, "h_fq_inv", x * R % Q) == pow(x, -1, Q) * R % Q
         assert _op(lib, "h_fq_from_mont", x * R % Q) == x
     assert _op(lib, "h_fq_inv", 0) == 0
+    xs = [0, 1, Q - 1, 1 << 252, Q, M, rng.randrange(Q), rng.randrange(R)]
+    for x, y in zip(xs[::2], xs[1::2]):
+        out = _buf(0, 16)
+        lib.h_fq_to_mont2(out, _buf(x | y << 256, 16))
+        assert _val(out) == (x * R % Q) | (y * R % Q) << 256, (x, y)
     for b in (bytes(64), b"\xff" * 64, rng.randbytes(64)):
         out = _buf(0)
         lib.h_fq_from_bytes_wide(out, (ctypes.c_uint8 * 64)(*b))

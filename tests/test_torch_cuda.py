@@ -10,6 +10,8 @@ configures JAX:
 
 Everything is integer arithmetic: the kernel and the plain version agree
 bit for bit (tolerance zero).  Shapes are those of ``chip_smoke.py``,
+the elementwise Fq kernel's (``ff/fq.py::to_mont``) also into a slice of
+a larger table, as the prover's z takes the witness,
 K4 (``curve/ristretto.py``) also at 1-4,097 points with lazy coordinates,
 K3 (``transcript/device.py``) also with 16 segments and at odd offsets,
 and for K5 (``curve/point_msm.py``) also groups that are no power of
@@ -60,6 +62,51 @@ def test_row_msm_kernel_vs_plain(dev, L, R):
     torch.cuda.synchronize()
     assert rm.row_msm.launches == before + 1
     assert torch.equal(got, rm.row_msm_plain(s, tab))
+
+
+@pytest.mark.parametrize("n", [1, 5, 513, 1 << 20])
+def test_to_mont_kernel_vs_plain(dev, n):
+    from spartan_tpu_torch.ff import fq
+
+    a = _elems(n, 7 * n, dev)
+    a[-1] = limb.ints_to_limbs([1 << 252], dev)[0]
+    before = fq.to_mont.launches
+    got = fq.to_mont(a)
+    torch.cuda.synchronize()
+    assert fq.to_mont.launches == before + 1
+    assert torch.equal(got, fq.to_mont_plain(a))
+
+
+def test_to_mont_kernel_into_a_view(dev):
+    """The witness's map writes into z[:n]: here into rows k..k+n of a
+    larger table, whose other rows stay as they were."""
+    from spartan_tpu_torch.ff import fq
+
+    n, k = 4096, 3
+    a = _elems(n, 11, dev)
+    z = _elems(2 * n + k, 12, dev)
+    keep = z.clone()
+    out = fq.to_mont(a, out=z[k:k + n])
+    torch.cuda.synchronize()
+    assert out.data_ptr() == z[k:k + n].data_ptr()
+    assert torch.equal(z[k:k + n], fq.to_mont_plain(a))
+    assert torch.equal(z[:k], keep[:k])
+    assert torch.equal(z[k + n:], keep[k + n:])
+
+
+def test_witness_z_on_the_card(dev):
+    from spartan_tpu_torch.ff import fq
+    from spartan_tpu_torch.poly import dense
+    from spartan_tpu_torch.r1cs.proof import witness_z
+
+    n, inputs = 1 << 10, list(range(5, 15))
+    vars_ints = limb.limbs_to_ints(_elems(n, 13, "cpu"))
+    before = fq.to_mont.launches
+    z = witness_z(limb.ints_to_limbs(vars_ints, dev), inputs)
+    torch.cuda.synchronize()
+    assert fq.to_mont.launches == before + 1
+    z_ints = vars_ints + [1] + inputs + [0] * (n - len(inputs) - 1)
+    assert torch.equal(z, dense.from_ints(z_ints, dev))
 
 
 @pytest.mark.parametrize("ntab,n", [(4, 8), (4, 64), (4, 4096), (4, 1 << 20),
