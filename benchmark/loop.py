@@ -17,9 +17,13 @@ the window runs to its end and counts.  A traffic mix
   from (seed, request), worked out on the host before the step, proved
   with a fresh transcript and random tape and serialised; ``verify``:
   deserialise and verify the request's proof, or, where the request
-  proves nothing, the next of the ``setup_proofs`` in turn;
-- ``setup_proofs``: proofs made in set-up, from inputs of their own, for
-  requests that verify without proving;
+  proves nothing, a set-up proof of its own;
+- ``setup_proofs``: in a mix that only verifies, the window's requests:
+  set-up proves one proof for each, from inputs and a tape of its own,
+  and one more for each warm-up request.  The window verifies each once,
+  in turn, and ends after the last (a verifier checks a proof once:
+  none is verified twice, so nothing computed for one proof can serve
+  another);
 - ``warmup_requests``: requests run in set-up, before the window;
 - ``checked_requests``: proofs of the window that the reference judges,
   drawn from the seed;
@@ -93,11 +97,12 @@ class _Nizk:
             dep.inst, self.p.api.Assignment(inputs),
             self.p.Transcript(LABEL), self.gens)
 
-    def tampered(self, blob) -> bytes:
+    def tampered(self, blob) -> list[bytes]:
+        """The proof with one scalar of the R1CS proof changed."""
         proof = self.p.ser.nizk_from_bytes(blob)
         eq = proof.r1cs_sat_proof.proof_eq_sc_phase2
         eq.z = (eq.z + 1) % Q
-        return self.p.ser.nizk_to_bytes(proof)
+        return [self.p.ser.nizk_to_bytes(proof)]
 
 
 class _Snark:
@@ -125,11 +130,22 @@ class _Snark:
             dep.comm, self.p.api.Assignment(inputs),
             self.p.Transcript(LABEL), self.gens, device=self.device)
 
-    def tampered(self, blob) -> bytes:
-        proof = self.p.ser.snark_from_bytes(blob)
-        eq = proof.r1cs_sat_proof.proof_eq_sc_phase2
-        eq.z = (eq.z + 1) % Q
-        return self.p.ser.snark_to_bytes(proof)
+    def tampered(self, blob) -> list[bytes]:
+        """The proof with one scalar changed in the R1CS proof, and
+        apart in Spark's hash layer (the row memory's audit claim)."""
+        out = []
+        for where in ("sat", "spark"):
+            proof = self.p.ser.snark_from_bytes(blob)
+            if where == "sat":
+                eq = proof.r1cs_sat_proof.proof_eq_sc_phase2
+                eq.z = (eq.z + 1) % Q
+            else:
+                hl = proof.r1cs_eval_proof.proof.poly_eval_network_proof \
+                    .proof_hash_layer
+                addr, read_ts, audit_ts = hl.eval_row
+                hl.eval_row = (addr, read_ts, (audit_ts + 1) % Q)
+            out.append(self.p.ser.snark_to_bytes(proof))
+        return out
 
 
 PROTOCOLS = {"nizk": _Nizk, "snark": _Snark}
@@ -202,8 +218,17 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         ", encode" if conf["protocol"] == "snark" else ""),
         time.perf_counter()))
     per_request_circuit = "encode" in steps
-    setup_proofs = []
+    # a mix that only verifies: (proof bytes, inputs) by request index
+    setup_proofs = {}
+    window_requests = mix["setup_proofs"] if "prove" not in steps else None
     latest = {}  # the newest request's own deployment, by request index
+
+    def proved_witness(c: Circuit, i: int, inputs: list) -> list:
+        """The witness that request ``i`` is proved with: of its own
+        inputs, or under the control of other ones (warm-up apart)."""
+        if control == "wrong-inputs" and i < WARMUP_IDS:
+            inputs = [(inputs[0] + 1) % Q] + inputs[1:]
+        return c.witness(inputs)
 
     def request(i: int, annotate) -> dict:
         rec = dict(index=i)
@@ -237,10 +262,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
                 rec["circuit"], rec["setup"] = cur, cur_dep.setup
             if "prove" in steps:
                 inputs = cur.inputs(seed, i)
-                proved = inputs
-                if control == "wrong-inputs" and i < WARMUP_IDS:
-                    proved = [(inputs[0] + 1) % Q] + inputs[1:]
-                vars_ = cur.witness(proved)
+                vars_ = proved_witness(cur, i, inputs)
                 tape = _tape_seed(seed, i)
                 rec.update(inputs=inputs, tape=tape)
                 if trace:
@@ -249,8 +271,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
                     "prove", lambda: proto.prove(cur_dep, vars_, inputs,
                                                  tape))
             else:
-                rec["blob"], rec["inputs"] = setup_proofs[
-                    i % len(setup_proofs)]
+                if i not in setup_proofs:
+                    raise LookupError(f"no set-up proof for request {i}")
+                rec["blob"], rec["inputs"] = setup_proofs.pop(i)
             if "verify" in steps:
                 timed("verify", lambda: proto.verify(cur_dep, rec["blob"],
                                                      rec["inputs"]))
@@ -263,12 +286,17 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         contextlib.nullcontext()
     warm = []
     with quiet:
-        for k in range(mix.get("setup_proofs", 0)):
-            inputs = circuit.inputs(seed, SETUP_IDS + k)
+        if window_requests is not None:
+            ids = list(range(window_requests)) + [
+                WARMUP_IDS + k for k in range(mix["warmup_requests"])]
+        else:
+            ids = []
+        for i in ids:
+            inputs = circuit.inputs(seed, SETUP_IDS + i)
             try:
-                setup_proofs.append((proto.prove(
-                    dep, circuit.witness(inputs), inputs,
-                    _tape_seed(seed, SETUP_IDS + k)), inputs))
+                setup_proofs[i] = (proto.prove(
+                    dep, proved_witness(circuit, i, inputs), inputs,
+                    _tape_seed(seed, SETUP_IDS + i)), inputs)
             except Exception as e:  # counted as a failed warm-up
                 warm.append(dict(error=f"{type(e).__name__}: {e}"[:500]))
         warm += [request(WARMUP_IDS + k, no_annotation)
@@ -308,7 +336,8 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
             traced = annotate("bench::window")
             traced.__enter__()
         t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds:
+        while time.perf_counter() - t0 < seconds and \
+                len(reqs) != window_requests:
             reqs.append(request(len(reqs), annotate))
             if prof is not None and len(reqs) == mix["traced_requests"]:
                 _sync(torch, dev)
@@ -382,11 +411,12 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
             if not per_request_circuit or r["index"] in latest]
     if mine:
         r, d = mine[0]
-        try:
-            proto.verify(d, proto.tampered(r["blob"]), r["inputs"])
-            tampered_accepted = 1
-        except Exception:  # rejected, as it must be
-            pass
+        for blob in proto.tampered(r["blob"]):
+            try:
+                proto.verify(d, blob, r["inputs"])
+                tampered_accepted += 1
+            except Exception:  # rejected, as it must be
+                pass
     base_setup = dep.setup
     del dep, mine, setup_proofs
     latest.clear()

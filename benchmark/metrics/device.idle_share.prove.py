@@ -2,12 +2,8 @@
 ran on the card (``torch.profiler``), in percent.  The traced run's
 spans synchronise the card at their ends, which adds idle time at each
 span boundary."""
+from benchmark.readers import idle_share
 
 
 def read(run):
-    if run.trace is None or not len(run.trace.dev):
-        return None
-    span = run.trace.span_s("bench::prove")
-    if span <= 0:
-        return None
-    return 100.0 * (1.0 - run.trace.busy_s("bench::prove") / span)
+    return idle_share(run, "bench::prove")

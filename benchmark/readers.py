@@ -35,3 +35,15 @@ def roofline(run, least_s: float, names):
     if spent <= 0 or least_s <= 0:
         return None
     return 100.0 * least_s / spent
+
+
+def idle_share(run, rng: str):
+    """The share of the ranges ``rng`` in which no kernel, copy or set
+    ran on the card, in percent; None where the trace holds no device
+    activity or no such range."""
+    if run.trace is None or not len(run.trace.dev):
+        return None
+    span = run.trace.span_s(rng)
+    if span <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s(rng) / span)

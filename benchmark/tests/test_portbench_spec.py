@@ -55,6 +55,7 @@ def test_metrics(data):
                           "workloads"}
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25 and UNIT.match(m["unit"])
+        assert set(m.get("workloads", cells)) <= cells
     for m in data["per_layer"]:
         assert set(m) == {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
@@ -87,3 +88,24 @@ def test_run_refuses_an_unknown_cell():
     with pytest.raises(spec.UnknownName):
         run.main(["--workload", "no-such.cell", "--seed", "1",
                   "--seconds", "1", "--trace", "0"])
+
+
+PROVE_CELLS = {
+    "nizk-2p20.prove-verify": [
+        "r1cs.phase_one_s", "r1cs.polycommit_s", "rt.fetches",
+        "kernels.fold_evals_roofline", "kernels.row_msm_roofline",
+        "device.idle_share.prove"],
+    "snark-2p20.prove-verify": [
+        "r1cs.phase_one_s", "r1cs.polycommit_s", "spark.eval_proof_s",
+        "spark.layer_rounds_s", "rt.fetches", "kernels.fold_evals_roofline",
+        "device.idle_share.prove"],
+}
+
+
+@pytest.mark.parametrize("cell", sorted(PROVE_CELLS))
+def test_the_prove_cells_metrics_as_before(cell):
+    sp = spec.Spec()
+    assert [m["name"] for m in sp.end_to_end(cell)] == [
+        "prove_s", "peak_mem_bytes", "setup_s"]
+    assert [m["name"] for m in sp.per_layer(cell)] == PROVE_CELLS[cell]
+    assert sp.cell(cell)["traffic"] == "prove-verify"
