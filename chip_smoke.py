@@ -63,7 +63,12 @@ bullet round's scalar step (``csrc/bullet_step.cu``), in every mode at
 n = 1,024, 2,048 and 4,096, the fold also at u = 1, q - 1 and 2^200;
 the elementwise Fq kernel's Montgomery map (``csrc/fq_elementwise.cu``)
 against its plain version at 1, 5, 513 and 2^20 elements, also into a
-slice of a larger table, timed at 2^20 beside its bound;
+slice of a larger table, timed at 2^20 beside its bound; its other modes
+(MUL, ADD, SUB, FROM_MONT, EQ) and the reduction kernel K8
+(``csrc/fq_reduce.cu``) at the SNARK's shapes (``fq ...`` lines: each
+against its plain version, timed beside its bound and the plain
+version's time); the launches of K7 and K8 by mode in the 2^20 SNARK's
+encode and prove (``K7/K8 launches by mode ...``, every mode there);
 forced launch failures of K5 and K4 and forced build failures of K6
 and K3, each of which must raise with no plain version run in its
 place; then a host round and a device round timed at n = 2^1 ... 2^12
@@ -84,7 +89,8 @@ bit at the first sharded shapes, 4 launches at n/4 timed beside one at
 n); and the two-tier collectives on the card listed 8 times as (2
 hosts, 4 devices) against python ints and the host MSM (``dcn
 {...}``).  It ends with a JSON line per kernel (B2's batched mode its
-own line, K3, K4, K5, K6 and the Montgomery map theirs), the card's line from nvidia-smi
+own line, K3, K4, K5, K6, the Montgomery map and K7's other modes with
+K8 theirs), the card's line from nvidia-smi
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; with no card it exits 2 before printing any result.  All inputs are made from fixed
 seeds.
@@ -174,7 +180,7 @@ def build_kernels() -> None:
         return path, report, time.perf_counter() - t0
 
     names = ["row_msm", "fold_evals", "keccak", "ristretto", "point_msm",
-             "bullet_step", "fq_elementwise"]
+             "bullet_step", "fq_elementwise", "fq_reduce"]
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = {n: pool.submit(timed, n) for n in names}
         for name in names:
@@ -487,6 +493,130 @@ def check_to_mont(dev, gen) -> dict:
                 f"({bound['bound_by']}), plain {plain_ms:.2f} ms")
             result = dict(shape=[n], ms=ms, eager_ms=eager,
                           plain_ms=plain_ms, max_abs_err=err, **bound)
+    return result
+
+
+# K7's other modes and K8 at the SNARK's shapes at 2^LOG_N: (name, mode,
+# a's elements, b: "table", "scalar" or None).  Hash leaves and tree
+# layers: 3 x 2^20 by a scalar, 12 x 2^19 by a table; the derefs' exit
+# from the Montgomery form at 2^23; Spark's batched evaluations (21 x
+# 2^20 by one eq table), bound_L at (2^12, 2^12) and the witness's
+# evaluation (2^20); the dot-product circuits' sum over (6, 2^19).
+FQ_TIMED = [("mul table", "mul", (12, 1 << 19), "table"),
+            ("mul scalar", "mul", (3, 1 << 20), "scalar"),
+            ("add table", "add", (12, 1 << 19), "table"),
+            ("sub scalar", "sub", (3, 1 << 20), "scalar"),
+            ("from_mont", "from_mont", (1 << 23,), None),
+            ("dot batched", "dot", (21, 1 << 20), (1 << 20,)),
+            ("dot bound_L", "dot", (1 << 12, 1 << 12), (1 << 12, 1)),
+            ("dot evaluate", "dot", (1 << 20,), (1 << 20,)),
+            ("sum dotp", "sum", (6, 1 << 19), None)]
+# the modes a SNARK prove launches
+FQ_PROVE_MODES = ("add", "dot", "eq", "from_mont", "mul", "sub", "sum",
+                  "to_mont")
+
+
+def fq_bound(mode: str, n: int, b, extra: int = 0) -> dict:
+    """Bytes: each input read and each output written once (``extra``
+    elements besides a's n); operations: a Montgomery product an element
+    of a product mode."""
+    if mode in ("mul", "add", "sub"):
+        elems = 2 * n + 1 if b == "scalar" else 3 * n
+    else:  # FROM_MONT writes n, EQ 2n, K8 its outputs and reads w
+        elems = n + {"from_mont": n, "eq": 2 * n}.get(mode, extra)
+    t_bytes = elems * 32 / HBM_BYTES_S * 1e3
+    prods = n if mode in ("mul", "from_mont", "dot", "eq") else 0
+    t_ops = prods * FQ_MUL_WIDE * IMAD_PER_WIDE / IMAD_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def check_fq_kernels(dev, gen) -> dict:
+    """K7's MUL, ADD, SUB, FROM_MONT and EQ modes and K8 at FQ_TIMED's
+    shapes and a 2^21 eq table: each against its plain version word for
+    word, timed launched one by one and in a CUDA graph beside its bound
+    and the plain version's time (the int64 limb ops on the card)."""
+    import torch
+
+    from spartan_tpu_torch.core.field import Q
+    from spartan_tpu_torch.ff import fq
+    from spartan_tpu_torch.poly import dense
+
+    def plain_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    result = {}
+    for name, mode, shape, b in FQ_TIMED:
+        n = 1
+        for d in shape:
+            n *= d
+        a = with_edges(rand_elems(gen, n, dev), [0, 1, Q - 1]).reshape(
+            *shape, 8)
+        extra = 0
+        if mode in ("mul", "add", "sub"):
+            y = (rand_elems(gen, 1, dev)[0] if b == "scalar"
+                 else rand_elems(gen, n, dev).reshape(*shape, 8))
+            fn = lambda a=a, y=y, f=getattr(fq, mode): f(a, y)  # noqa: E731
+            plain = getattr(fq, mode + "_plain")
+            want, p_ms = plain_ms(lambda: plain(a, y))
+        elif mode == "from_mont":
+            fn = lambda a=a: fq.from_mont(a)  # noqa: E731
+            want, p_ms = plain_ms(lambda: fq.from_mont_plain(a))
+        elif mode == "dot":
+            w = rand_elems(gen, b[0], dev).reshape(*b, 8)
+            dim = 1 if len(shape) == 2 and len(b) == 1 else 0
+            fn = lambda a=a, w=w, d=dim: fq.dot_mod(a, w, d)  # noqa: E731
+            want, p_ms = plain_ms(lambda: fq.dot_mod_plain(a, w, dim))
+            extra = b[0] + n // b[0]
+        else:
+            fn = lambda a=a: fq.sum_mod(a, 1)  # noqa: E731
+            want, p_ms = plain_ms(lambda: fq.sum_mod_plain(a, 1))
+            extra = shape[0]
+        before = sum(fq.launches.values())
+        got = fn()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err or sum(fq.launches.values()) != before + 1:
+            raise AssertionError(f"fq {name} {shape}: max_abs_err {err}")
+        ms, eager = graph_ms(fn, 10), cuda_ms(fn, 10)
+        bound = fq_bound(mode, n, b, extra)
+        log(f"fq {name} {tuple(shape)}: {ms:.4f} ms in a CUDA graph "
+            f"({eager:.4f} one by one), bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}), plain {p_ms:.2f} ms")
+        result[name] = dict(mode=mode, shape=list(shape), ms=ms,
+                            eager_ms=eager, plain_ms=p_ms, max_abs_err=err,
+                            **bound)
+    ell = LOG_N + 1
+    r = [(7 ** j * 1000003) % Q for j in range(ell)]
+    want, p_ms = plain_ms(lambda: dense.eq_evals_plain(r, dev))
+    got = dense.eq_evals(r, dev)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("eq_evals differs from its plain version")
+    pts = fq.encode_ints([1, *r], dev)
+    tab = torch.empty((2 << ell, 8), dtype=torch.int32, device=dev)
+
+    def steps():  # eq_evals' launches on an uploaded point (no copy)
+        t = pts[:1]
+        for j in range(ell):
+            half = tab[(1 << ell) * (j % 2):]
+            t = fq.eq_step(t, pts[j + 1], out=half[:2 * t.shape[0]])
+
+    ms = graph_ms(steps, 10)
+    eager = cuda_ms(lambda: dense.eq_evals(r, dev), 10)
+    n = (1 << ell) - 1  # entries the steps read, and products
+    bound = fq_bound("eq", n, None)
+    log(f"fq eq table 2^{ell} ({ell} launches): {ms:.4f} ms in a CUDA graph "
+        f"({eager:.4f} one by one, with the upload), bound "
+        f"{bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}), plain {p_ms:.2f} ms")
+    result["eq table"] = dict(mode="eq", shape=[1 << ell], launches=ell,
+                              ms=ms, eager_ms=eager, plain_ms=p_ms,
+                              max_abs_err=0, **bound)
     return result
 
 
@@ -889,6 +1019,11 @@ def snark_main_path(dev, inst, vars_a, inputs_a) -> dict:
     f1, s1 = rt.snapshot()
     prove_peak = torch.cuda.max_memory_allocated()
     spans = {k: timer.totals.get(k) for k in SNARK_SPANS}
+    fq_modes = prove_launches["fq_by_mode"]
+    log(f"K7/K8 launches by mode, 2^{log_n} SNARK prove: {fq_modes}; "
+        f"encode: {encode_launches['fq_by_mode']}")
+    if set(fq_modes) != set(FQ_PROVE_MODES):
+        raise AssertionError(f"K7/K8 modes in the SNARK prove: {fq_modes}")
     if min(prove_launches["row_msm"],
            prove_launches["fold_evals_by_comb"]["cubic_prod"],
            prove_launches["point_msm"], prove_launches["bullet_step"],
@@ -996,7 +1131,8 @@ def reset_counts() -> None:
     from spartan_tpu_torch.ff import round_kernel as rk
     from spartan_tpu_torch.transcript import device as dt
 
-    rm.row_msm.launches = pm.point_msm.launches = fq.to_mont.launches = 0
+    rm.row_msm.launches = pm.point_msm.launches = 0
+    fq.launches.clear()
     rk.fold_evals.launches.clear()
     rk.fold_evals.launches_device_r = 0
     bk.bullet_step.launches.clear()
@@ -1023,6 +1159,10 @@ def read_counts() -> dict:
     by_comb = dict.fromkeys(rk._WHICH.values(), 0)
     for (comb, *_), count in rk.fold_evals.launches.items():
         by_comb[comb] += count
+    fq_by_mode = collections.Counter()
+    for (mode, _), count in fq.launches.items():
+        fq_by_mode[mode] += count
+    fq_by_mode = dict(sorted(fq_by_mode.items()))
     return {"row_msm": rm.row_msm.launches,
             "fold_evals": sum(by_comb.values()),
             "fold_evals_by_comb": by_comb,
@@ -1032,7 +1172,8 @@ def read_counts() -> dict:
             "point_msm": pm.point_msm.launches,
             "bullet_step": sum(bk.bullet_step.launches.values()),
             "bullet_step_by_mode": dict(bk.bullet_step.launches),
-            "to_mont": fq.to_mont.launches,
+            "to_mont": fq_by_mode.get("to_mont", 0),
+            "fq_by_mode": fq_by_mode,
             "plain_calls_on_card": plain, "plain_cuda_calls": calls}
 
 
@@ -2230,6 +2371,7 @@ def main() -> int:
     k5 = check_point_msm(dev, gen)
     k6 = check_bullet_step(dev, gen)
     k7 = check_to_mont(dev, gen)
+    k78 = check_fq_kernels(dev, gen)
     check_no_fallback(dev, gen)
     rounds = bullet_round_times(dev)
     golden(dev)
@@ -2280,7 +2422,7 @@ def main() -> int:
                    sharded["snark_prove"]["launches"][name]}
         for name in ("row_msm", "fold_evals", "fold_evals_device_r",
                      "strobe_step", "ristretto_compress", "point_msm",
-                     "bullet_step", "to_mont")}
+                     "bullet_step", "to_mont", "fq_by_mode")}
     timed = PROD_TIMED + ("fold_evals",)
     kernels = [
         dict(name="row_msm", route="cuda",
@@ -2346,6 +2488,13 @@ def main() -> int:
              source="spartan_tpu_torch/csrc/fq_elementwise.cu",
              replaces=None, launches=summary["launches"]["to_mont"],
              launches_by_path=by_path["to_mont"], library_ms=None, **k7),
+        dict(name="fq_elementwise[mul, add, sub, from_mont, eq] and "
+                  "fq_reduce[dot, sum]", route="cuda",
+             source="spartan_tpu_torch/csrc/fq_elementwise.cu, "
+                    "spartan_tpu_torch/csrc/fq_reduce.cu",
+             replaces=None, launches=summary["launches"]["fq_by_mode"],
+             launches_by_path=by_path["fq_by_mode"], library_ms=None,
+             cases=k78),
     ]
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,10 @@
 //
 // fq_add_lazy leaves a sum unreduced where it only feeds fq_mul's second
 // operand.  A sum of many elements is kept unreduced in a 9-word accumulator
-// (fq_acc_add, fq_acc_add9) and brought to [0, q) once (fq_reduce_wide).
+// (fq_acc_add, fq_acc_add9, fq_acc_mul_n for a sum of products) and brought
+// to [0, q) once (fq_reduce_wide).  fq_from_mont_n and fq_eq_step_n are the
+// elementwise kernel's FROM_MONT and EQ modes (fq_elementwise.cu),
+// fq_acc_mul_n the reduction kernel's weighted sum (fq_reduce.cu).
 #pragma once
 #include <stdint.h>
 
@@ -172,6 +175,31 @@ static __device__ __forceinline__ void fq_to_mont_n(uint32_t (*r)[8],
   fq_mul_n<N>(r, (const uint32_t(*)[8])r2, a);
 }
 
+// N exits from the Montgomery form side by side: r[n] = a[n] * R^-1 mod
+// q, canonical, for any a[n] < 2^256 (a product by 1, the first operand)
+template <int N>
+static __device__ __forceinline__ void fq_from_mont_n(uint32_t (*r)[8],
+                                                      const uint32_t (*a)[8]) {
+  uint32_t one[N][8];
+#pragma unroll
+  for (int n = 0; n < N; n++)
+#pragma unroll
+    for (int j = 0; j < 8; j++) one[n][j] = j == 0;
+  fq_mul_n<N>(r, (const uint32_t(*)[8])one, a);
+}
+
+// N doubling steps of an eq table side by side: entry t[n] splits into
+// hi[n] = t[n] * r[n] (Montgomery) and lo[n] = t[n] - hi[n]
+template <int N>
+static __device__ __forceinline__ void fq_eq_step_n(uint32_t (*lo)[8],
+                                                    uint32_t (*hi)[8],
+                                                    const uint32_t (*t)[8],
+                                                    const uint32_t (*r)[8]) {
+  fq_mul_n<N>(hi, t, r);
+#pragma unroll
+  for (int n = 0; n < N; n++) fq_sub(lo[n], t[n], hi[n]);
+}
+
 // r = a + b unreduced, for a sum the caller keeps below 2^256 (a lazy
 // second operand of fq_mul)
 static __device__ __forceinline__ void fq_add_lazy(uint32_t r[8],
@@ -201,6 +229,18 @@ static __device__ __forceinline__ void fq_acc_add9(uint32_t acc[9],
   acc[8] = addc(acc[8], x[8]);
 }
 
+// acc (9 words) += a[n] * w[n] (Montgomery products, canonical) for N
+// products side by side; N products of at most q - 1 each keep a sum
+// below 2^288 for up to 2^35 terms in all
+template <int N>
+static __device__ __forceinline__ void fq_acc_mul_n(uint32_t acc[9],
+                                                    const uint32_t (*a)[8],
+                                                    const uint32_t (*w)[8]) {
+  uint32_t p[N][8];
+  fq_mul_n<N>(p, a, w);
+#pragma unroll
+  for (int n = 0; n < N; n++) fq_acc_add(acc, p[n]);
+}
 
 // r = v mod q for a 9-word v = lo + v[8] * 2^256: v * R^-1 is
 // lo * R^-1 + v[8] (R = 2^256), and one more product by R^2 undoes the

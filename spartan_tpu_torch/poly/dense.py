@@ -17,7 +17,29 @@ from ..ff import fq, limb
 def eq_evals(r: list[int], device=None) -> torch.Tensor:
     """EqPolynomial::evals (dense_mlpoly.rs:68-84): the 2^ell chi table
     for point r, built by ell doubling steps.  r[0] pairs with the MOST
-    significant index bit."""
+    significant index bit.  On the card a step is one launch of the
+    elementwise kernel's EQ mode (``fq.eq_step``), the steps alternating
+    between two tables so that the last writes the larger; on the CPU,
+    ``eq_evals_plain``."""
+    if torch.device(device or "cpu").type == "cpu":
+        return eq_evals_plain(r, device)
+    pts = fq.encode_ints([1, *r], device)  # one upload: 1 and the point
+    ell = len(r)
+    t = pts[:1]
+    if ell == 0:
+        return t.clone()
+    bufs = [torch.empty((1 << ell, limb.NWORDS), dtype=torch.int32,
+                        device=pts.device),
+            torch.empty((1 << (ell - 1), limb.NWORDS), dtype=torch.int32,
+                        device=pts.device)]
+    for j in range(ell):
+        dst = bufs[(ell - 1 - j) % 2]
+        t = fq.eq_step(t, pts[j + 1], out=dst[:2 * t.shape[0]])
+    return t
+
+
+def eq_evals_plain(r: list[int], device=None) -> torch.Tensor:
+    """``eq_evals`` in plain PyTorch."""
     t = limb.unpack(fq.encode_ints([1], device))
     rs = limb.unpack(fq.encode_ints(r, device))
     for j in range(len(r)):

@@ -140,6 +140,17 @@ void h_fq_add_lazy(uint32_t* r, const uint32_t* a, const uint32_t* b) { fq_add_l
 void h_fq_acc_add(uint32_t* acc, const uint32_t* x) { fq_acc_add(acc, x); }
 void h_fq_acc_add9(uint32_t* acc, const uint32_t* x) { fq_acc_add9(acc, x); }
 void h_fq_reduce_wide(uint32_t* r, const uint32_t* v) { fq_reduce_wide(r, v); }
+void h_fq_from_mont2(uint32_t* r, const uint32_t* x) {
+  fq_from_mont_n<2>((uint32_t(*)[8])r, (const uint32_t(*)[8])x);
+}
+void h_fq_eq_step2(uint32_t* lo, uint32_t* hi, const uint32_t* t,
+                   const uint32_t* r) {
+  fq_eq_step_n<2>((uint32_t(*)[8])lo, (uint32_t(*)[8])hi,
+                  (const uint32_t(*)[8])t, (const uint32_t(*)[8])r);
+}
+void h_fq_acc_mul2(uint32_t* acc, const uint32_t* a, const uint32_t* w) {
+  fq_acc_mul_n<2>(acc, (const uint32_t(*)[8])a, (const uint32_t(*)[8])w);
+}
 }
 """
 
@@ -468,6 +479,49 @@ def test_fq_accumulate_and_reduce(lib, op):
             out = _buf(0)
             lib.h_fq_reduce_wide(out, _buf(v, 9))
             assert _val(out) == v % Q, v
+
+
+def _pair(x: int, y: int):
+    return _buf(x | y << 256, 16)
+
+
+def _halves(buf) -> list[int]:
+    v = _val(buf)
+    return [v % R, v >> 256]
+
+
+@pytest.mark.parametrize("op", ["from_mont2", "eq_step2", "acc_mul2"])
+def test_fq_kernel_mode_bodies(lib, op):
+    """The bodies of K7's FROM_MONT and EQ modes and of K8's weighted
+    sum, two elements side by side, at the edge values and at random
+    ones: FROM_MONT takes any value below 2^256, the weighted sum
+    accumulates up to the 9-word range."""
+    rng = random.Random(16)
+    r_inv = pow(R, -1, Q)
+    xs = [0, 1, Q - 1] + [rng.randrange(Q) for _ in range(40)]
+    ys = [Q - 1, 0, 1] + [rng.randrange(Q) for _ in range(40)]
+    if op == "from_mont2":
+        vs = EDGES + [rng.randrange(R) for _ in range(41)]
+        for x, y in zip(vs[0::2], vs[1::2]):
+            out = _buf(0, 16)
+            lib.h_fq_from_mont2(out, _pair(x, y))
+            assert _halves(out) == [x * r_inv % Q, y * r_inv % Q]
+    elif op == "eq_step2":
+        for k in range(len(xs) - 1):
+            t, r = (xs[k], xs[k + 1]), (ys[k], ys[k + 1])
+            lo, hi = _buf(0, 16), _buf(0, 16)
+            lib.h_fq_eq_step2(lo, hi, _pair(*t), _pair(*r))
+            want_hi = [a * b * r_inv % Q for a, b in zip(t, r)]
+            assert _halves(hi) == want_hi
+            assert _halves(lo) == [(a - h) % Q for a, h in zip(t, want_hi)]
+    else:
+        for acc in [0, Q - 1, TOP - 1 - 2 * Q, rng.randrange(1 << 280)]:
+            for k in range(len(xs) - 1):
+                a, w = (xs[k], xs[k + 1]), (ys[k], ys[k + 1])
+                buf = _buf(acc, 9)
+                lib.h_fq_acc_mul2(buf, _pair(*a), _pair(*w))
+                assert _val(buf) == acc + sum(
+                    x * y * r_inv % Q for x, y in zip(a, w))
 
 
 @pytest.mark.parametrize("square", [False, True], ids=["product", "square"])

@@ -10,8 +10,12 @@ configures JAX:
 
 Everything is integer arithmetic: the kernel and the plain version agree
 bit for bit (tolerance zero).  Shapes are those of ``chip_smoke.py``,
-the elementwise Fq kernel's (``ff/fq.py::to_mont``) also into a slice of
-a larger table, as the prover's z takes the witness,
+the elementwise Fq kernel's (K7, ``ff/fq.py``: every mode) also into a
+slice of a larger table, as the prover's z takes the witness, with
+scalars and strided views as operands and at ragged sizes, the
+reduction kernel's (K8, ``fq.dot_mod``, ``fq.sum_mod``) at the default
+path's shapes, and a 2^10 SNARK proved on the card with the same bytes
+as on the CPU and no plain Fq function run on the card,
 K4 (``curve/ristretto.py``) also at 1-4,097 points with lazy coordinates,
 K3 (``transcript/device.py``) also with 16 segments and at odd offsets,
 and for K5 (``curve/point_msm.py``) also groups that are no power of
@@ -70,10 +74,10 @@ def test_to_mont_kernel_vs_plain(dev, n):
 
     a = _elems(n, 7 * n, dev)
     a[-1] = limb.ints_to_limbs([1 << 252], dev)[0]
-    before = fq.to_mont.launches
+    before = fq.launches["to_mont", n]
     got = fq.to_mont(a)
     torch.cuda.synchronize()
-    assert fq.to_mont.launches == before + 1
+    assert fq.launches["to_mont", n] == before + 1
     assert torch.equal(got, fq.to_mont_plain(a))
 
 
@@ -101,12 +105,218 @@ def test_witness_z_on_the_card(dev):
 
     n, inputs = 1 << 10, list(range(5, 15))
     vars_ints = limb.limbs_to_ints(_elems(n, 13, "cpu"))
-    before = fq.to_mont.launches
+    before = fq.launches["to_mont", n]
     z = witness_z(limb.ints_to_limbs(vars_ints, dev), inputs)
     torch.cuda.synchronize()
-    assert fq.to_mont.launches == before + 1
+    assert fq.launches["to_mont", n] == before + 1
     z_ints = vars_ints + [1] + inputs + [0] * (n - len(inputs) - 1)
     assert torch.equal(z, dense.from_ints(z_ints, dev))
+
+
+# K7's other modes and K8 (ff/fq.py) at the default path's shapes: the
+# hash leaves and tree layers at 2^21 and (12, 2^20), Spark's batched
+# evaluations at (12, 2^20) and (4, 2^21), bound_L at (2^12, 2^12), and
+# the ragged 1, 3 and 2^20 + 5
+FQ_SHAPES = [(1,), (3,), ((1 << 20) + 5,), (1 << 21,), (12, 1 << 20),
+             (4, 1 << 21)]
+EDGES = [0, 1, Q - 1]
+
+
+def _operands(shape, seed, dev):
+    """Two tables of ``shape`` elements whose first 9 pairs are every
+    pair of the edge values 0, 1, q - 1 (fewer when the table is
+    smaller)."""
+    n = 1
+    for s in shape:
+        n *= s
+    a, b = _elems(n, seed, dev), _elems(n, seed + 1, dev)
+    k = min(n, 9)
+    pairs = [(x, y) for x in EDGES for y in EDGES][:k]
+    a[:k] = limb.ints_to_limbs([x for x, _ in pairs], dev)
+    b[:k] = limb.ints_to_limbs([y for _, y in pairs], dev)
+    return a.reshape(*shape, 8), b.reshape(*shape, 8)
+
+
+@pytest.mark.parametrize("shape", FQ_SHAPES)
+@pytest.mark.parametrize("mode", ["mul", "add", "sub", "from_mont"])
+def test_fq_elementwise_modes_vs_plain(dev, mode, shape):
+    from spartan_tpu_torch.ff import fq
+
+    a, b = _operands(shape, len(shape) + shape[0], dev)
+    n = a.numel() // 8
+    before = fq.launches[mode, n]
+    if mode == "from_mont":
+        got, want = fq.from_mont(a), fq.from_mont_plain(a)
+    else:
+        got = getattr(fq, mode)(a, b)
+        want = getattr(fq, mode + "_plain")(a, b)
+    torch.cuda.synchronize()
+    assert fq.launches[mode, n] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4096])
+def test_fq_neg_square_vs_plain(dev, n):
+    from spartan_tpu_torch.ff import fq
+
+    a, _ = _operands((n,), n, dev)
+    assert torch.equal(fq.neg(a), fq.sub_plain(torch.zeros_like(a), a))
+    assert torch.equal(fq.square(a), fq.mul_plain(a, a))
+
+
+@pytest.mark.parametrize("mode", ["mul", "add", "sub"])
+def test_fq_elementwise_broadcast_and_views(dev, mode):
+    """A scalar on either side (every default-path broadcast), a batch
+    of rows broadcast along the table, and the strided halves of a
+    product tree's layer: each read in place, one launch."""
+    from spartan_tpu_torch.ff import fq
+
+    f, plain = getattr(fq, mode), getattr(fq, mode + "_plain")
+    a, b = _operands((4, 1 << 12), 5, dev)
+    for x, y in [(a, b[0, 0]), (b[1, 2], a), (a, b[:, :1]),
+                 (a[:, :1 << 11], a[:, 1 << 11:]), (a[:, 0], b[:, 7])]:
+        n = torch.broadcast_shapes(x.shape, y.shape)[:-1].numel()
+        before = fq.launches[mode, n]
+        got = f(x, y)
+        torch.cuda.synchronize()
+        assert fq.launches[mode, n] == before + 1
+        assert got.is_contiguous()
+        assert torch.equal(got, plain(x, y))
+
+
+@pytest.mark.parametrize("mode", ["mul", "add", "sub", "from_mont"])
+def test_fq_elementwise_into_a_view(dev, mode):
+    from spartan_tpu_torch.ff import fq
+
+    n, k = 4096, 3
+    a, b = _operands((n,), 21, dev)
+    z = _elems(2 * n + k, 22, dev)
+    keep = z.clone()
+    args = (a,) if mode == "from_mont" else (a, b)
+    out = getattr(fq, mode)(*args, out=z[k:k + n])
+    torch.cuda.synchronize()
+    assert out.data_ptr() == z[k:k + n].data_ptr()
+    assert torch.equal(z[k:k + n], getattr(fq, mode + "_plain")(*args))
+    assert torch.equal(z[:k], keep[:k])
+    assert torch.equal(z[k + n:], keep[k + n:])
+
+
+@pytest.mark.parametrize("ell", [0, 1, 2, 7, 20, 21])
+def test_eq_evals_kernel_vs_plain(dev, ell):
+    """The eq table by K7's EQ mode, a launch a doubling step, with the
+    point's coordinates 0, 1 and q - 1 among random ones."""
+    import random
+
+    from spartan_tpu_torch.ff import fq
+    from spartan_tpu_torch.poly import dense
+
+    rng = random.Random(ell)
+    r = [[0, 1, Q - 1][j % 3] if j % 4 == 3 else rng.randrange(Q)
+         for j in range(ell)]
+    before = sum(fq.launches.values())
+    got = dense.eq_evals(r, dev)
+    torch.cuda.synchronize()
+    assert sum(fq.launches.values()) == before + ell
+    assert got.shape == (1 << ell, 8)
+    assert torch.equal(got, dense.eq_evals_plain(r, dev))
+
+
+# (a shape, b shape, dim): Spark's batched evaluations and dense.evaluate
+# (k = 1), bound_L (o = 1), the device prover's, ragged sizes, and two
+# full operands (the products by K7, then K8's plain sum)
+DOT_CASES = [((1 << 21, 8), (1 << 21, 8), 0),
+             ((12, 1 << 20, 8), (1 << 20, 8), 1),
+             ((4, 1 << 21, 8), (1 << 21, 8), 1),
+             ((1 << 12, 1 << 12, 8), (1 << 12, 1, 8), 0),
+             ((1, 8), (1, 8), 0), ((3, 8), (3, 8), 0),
+             (((1 << 20) + 5, 8), ((1 << 20) + 5, 8), 0),
+             ((3, 5, 8), (1, 5, 8), 1), ((5, 3, 8), (5, 1, 8), 0),
+             ((2, 7, 3, 8), (7, 1, 8), 1), ((4, 16, 8), (4, 16, 8), 1)]
+
+
+@pytest.mark.parametrize("ashape,bshape,dim", DOT_CASES)
+def test_fq_dot_mod_kernel_vs_plain(dev, ashape, bshape, dim):
+    from spartan_tpu_torch.ff import fq
+
+    a = _elems(torch.Size(ashape[:-1]).numel(), 31, dev).reshape(ashape)
+    b = _elems(torch.Size(bshape[:-1]).numel(), 32, dev).reshape(bshape)
+    nd = max(len(ashape), len(bshape))
+
+    def weight(shape):  # one element along every element dim but dim
+        sh = (1,) * (nd - len(shape)) + shape
+        return all(s == 1 for d, s in enumerate(sh[:-1]) if d != dim)
+
+    before = dict(fq.launches)
+    got = fq.dot_mod(a, b, dim)
+    torch.cuda.synchronize()
+    modes = {k[0] for k, v in fq.launches.items() if v != before.get(k, 0)}
+    assert modes == ({"dot"} if weight(ashape) or weight(bshape)
+                     else {"mul", "sum"})
+    assert torch.equal(got, fq.dot_mod_plain(a, b, dim))
+
+
+@pytest.mark.parametrize("shape,dim", [((1 << 21, 8), 0),
+                                       ((6, 1 << 19, 8), 1),
+                                       ((1, 8), 0), ((3, 8), 0),
+                                       (((1 << 20) + 5, 8), 0),
+                                       ((2, 1 << 20, 8), 0),
+                                       ((5, 3, 7, 8), 1)])
+def test_fq_sum_mod_kernel_vs_plain(dev, shape, dim):
+    from spartan_tpu_torch.ff import fq
+
+    x = _elems(torch.Size(shape[:-1]).numel(), 33, dev).reshape(shape)
+    k = min(3, x.numel() // 8)
+    x.view(-1, 8)[-k:] = limb.ints_to_limbs([Q - 1] * k, dev)
+    n = x.numel() // 8
+    before = fq.launches["sum", n]
+    got = fq.sum_mod(x, dim)
+    torch.cuda.synchronize()
+    assert fq.launches["sum", n] == before + 1
+    assert torch.equal(got, fq.sum_mod_plain(x, dim))
+    # a strided view (a tree layer's left half) reads in place too
+    if shape[0] > 1 and len(shape) == 3:
+        v = x[:, : shape[1] // 2]
+        assert torch.equal(fq.sum_mod(v, 1), fq.sum_mod_plain(v, 1))
+
+
+def test_snark_2p10_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """A 2^10 SNARK proved on the card and on the CPU: the same bytes.
+    On the card every plain version of K7's and K8's functions raises,
+    so nothing there falls back to the int64 path, and every mode runs."""
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import SNARK, Instance, SNARKGens
+    from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.ff import fq
+    from spartan_tpu_torch.poly import dense
+
+    def prove(device):
+        inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
+            1024, 1024, 10, seed=1010, device=device)
+        gens = SNARKGens(1024, 1024, 10, 1024)
+        comm, decomm = SNARK.encode(inst, gens)
+        snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,
+                            Transcript(b"cuda_2p10"), _tape_seed=1011)
+        return ser.commitment_to_bytes(comm), ser.snark_to_bytes(snark)
+
+    want = prove("cpu")
+    for mod, name in [(fq, n + "_plain") for n in (
+            "mul", "add", "sub", "to_mont", "from_mont", "eq_step",
+            "dot_mod", "sum_mod")] + [(dense, "eq_evals_plain")]:
+        plain = getattr(mod, name)
+
+        def guarded(*args, _plain=plain, _name=name, **kw):
+            assert not any(isinstance(x, torch.Tensor) and x.is_cuda
+                           for x in args), f"{_name} on the card"
+            return _plain(*args, **kw)
+
+        monkeypatch.setattr(mod, name, guarded)
+    before = dict(fq.launches)
+    got = prove(dev)
+    used = {m for k, v in fq.launches.items() if v != before.get(k, 0)
+            for m in k[:1]}
+    assert got == want
+    assert used == {"to_mont", "mul", "add", "sub", "from_mont", "eq",
+                    "dot", "sum"}
 
 
 @pytest.mark.parametrize("ntab,n", [(4, 8), (4, 64), (4, 4096), (4, 1 << 20),
