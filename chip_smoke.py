@@ -45,11 +45,9 @@ beside its bound, its chain floor (251 squarings and 33 products at the
 group's latencies, and 284 products at the one-lane product's) and the
 launch floor; B2 reading its
 challenge through a pointer against the by-value form at (4, 2^20),
-(2, 2^21) and (18, 2^19), in both modes that take a challenge; and the
-same 2^20 NIZK and SNARK proved again under the gate, whose bytes must
-equal the host path's and verify, each device ZK phase, product proof
-and dot-product-log proof fetching once, and B1 launched there only as
-often as on the host path (never with the ZK rounds' tape secrets).
+(2, 2^21) and (18, 2^19), in both modes that take a challenge (K3 and
+B2's challenge by pointer have no caller in a prove: they are checked
+here alone).
 The bullet rounds' kernels: one field product's latency from a
 one-thread chain of them; K5, the grouped variable-base MSM
 (``csrc/point_msm.cu``, a quad of lanes a point), against its plain
@@ -1242,9 +1240,9 @@ def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
     return summary, dict(gens=gens, blob=blob)
 
 
-# The device prover's own kernels (protocols/device_prover.py): K3, one
-# STROBE step of the device transcript (csrc/keccak.cu), and K4, the
-# ristretto encode (csrc/ristretto.cu).  K3's bound is the latency of the
+# K3, one STROBE step of the device transcript (csrc/keccak.cu; no
+# prover path launches it), and K4, the ristretto encode
+# (csrc/ristretto.cu).  K3's bound is the latency of the
 # permutation's dependent chain: 7 dependent 32-bit ALU steps a round on
 # sm_90 (theta's five-input column parity as 2 three-input LOP3s, its
 # 1-bit rotate as two independent funnel shifts, 1, and the D xor fused
@@ -1952,121 +1950,6 @@ def bullet_round_times(dev) -> dict:
             "device_min": bullet.DEVICE_MIN["cuda"]}
 
 
-class FetchesPerCall:
-    """Counts the fetches (utils/rt.py) of each call of the device
-    prover's three entry points while active."""
-
-    def __enter__(self):
-        from spartan_tpu_torch.protocols import device_prover as dp
-        from spartan_tpu_torch.utils import rt
-
-        self.calls = []
-        self._orig = {}
-        for name in ("zk_sumcheck_phase_device",
-                     "prove_product_layers_device", "dotproduct_log_device"):
-            fn = getattr(dp, name)
-            self._orig[name] = fn
-
-            def counted(*a, _fn=fn, _name=name, **k):
-                f0 = rt.fetches
-                out = _fn(*a, **k)
-                self.calls.append((_name, rt.fetches - f0))
-                return out
-
-            setattr(dp, name, counted)
-        return self
-
-    def __exit__(self, *exc):
-        from spartan_tpu_torch.protocols import device_prover as dp
-
-        for name, fn in self._orig.items():
-            setattr(dp, name, fn)
-
-    def check(self, what: str) -> dict:
-        per = collections.Counter(name for name, _ in self.calls)
-        bad = [c for c in self.calls if c[1] != 1]
-        if not self.calls or bad:
-            raise AssertionError(f"{what}: device prover calls and their "
-                                 f"fetches {self.calls}")
-        return dict(per)
-
-
-GATED_KERNELS = ("row_msm", "fold_evals", "fold_evals_device_r",
-                 "strobe_step", "ristretto_compress", "point_msm",
-                 "bullet_step")
-
-
-def device_prover_paths(dev, inst, vars_a, inputs_a, nizk_ctx,
-                        snark_ctx) -> dict:
-    """The 2^20 NIZK and SNARK proved again under
-    SPARTAN_TPU_DEVICE_PROVER=1, with the host path's transcript labels
-    and tape seed: the bytes must equal the host path's (same process)
-    and verify.  Counters reset just before each prove and read just
-    after; each device ZK phase and product proof must fetch once."""
-    import torch
-
-    from spartan_tpu_torch import serialize as ser
-    from spartan_tpu_torch.api import NIZK, SNARK
-    from spartan_tpu_torch.core.merlin import Transcript
-    from spartan_tpu_torch.utils import rt, timer
-
-    def run(what, prove, spans):
-        torch.cuda.reset_peak_memory_stats()
-        mem0 = torch.cuda.memory_stats()
-        start_bytes = torch.cuda.memory_allocated()
-        timer.totals.clear()
-        f0, s0 = rt.snapshot()
-        reset_counts()
-        with FetchesPerCall() as per_call:
-            t0 = time.perf_counter()
-            proof = prove()
-            torch.cuda.synchronize()
-            prove_s = time.perf_counter() - t0
-        launches = read_counts()
-        f1, s1 = rt.snapshot()
-        missing = [k for k in GATED_KERNELS if launches[k] <= 0]
-        if missing:
-            raise AssertionError(f"{what}: {missing} never launched: "
-                                 f"{launches}")
-        return proof, {
-            "prove_s": prove_s, "spans_s": {k: timer.totals.get(k)
-                                            for k in spans},
-            "fetches": f1 - f0, "fetch_stall_s": s1 - s0,
-            "device_prover_calls": per_call.check(what),
-            "peak_device_bytes": torch.cuda.max_memory_allocated(),
-            "device_bytes_at_start": start_bytes,
-            "device_mallocs": new_segments(mem0), "launches": launches}
-
-    os.environ["SPARTAN_TPU_DEVICE_PROVER"] = "1"
-    try:
-        nizk, nizk_sum = run("nizk", lambda: NIZK.prove(
-            inst, vars_a, inputs_a, nizk_ctx["gens"],
-            Transcript(b"chip_smoke"), _tape_seed=7), NIZK_SPANS)
-        snark, snark_sum = run("snark", lambda: SNARK.prove(
-            inst, snark_ctx["comm"], snark_ctx["decomm"], vars_a, inputs_a,
-            snark_ctx["gens"], Transcript(b"chip_smoke_snark"),
-            _tape_seed=7), SNARK_SPANS)
-    finally:
-        del os.environ["SPARTAN_TPU_DEVICE_PROVER"]
-    if ser.nizk_to_bytes(nizk) != nizk_ctx["blob"]:
-        raise AssertionError("the device prover's NIZK bytes differ from "
-                             "the host path's")
-    if ser.snark_to_bytes(snark) != snark_ctx["blob"]:
-        raise AssertionError("the device prover's SNARK bytes differ from "
-                             "the host path's")
-    t0 = time.perf_counter()
-    nizk.verify(inst, inputs_a, Transcript(b"chip_smoke"), nizk_ctx["gens"])
-    nizk_sum["verify_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    snark.verify(snark_ctx["comm"], inputs_a,
-                 Transcript(b"chip_smoke_snark"), snark_ctx["gens"])
-    snark_sum["verify_s"] = time.perf_counter() - t0
-    out = {"nizk": nizk_sum, "snark": snark_sum,
-           "bytes_equal_host_path": True}
-    log("device_prover " + json.dumps(out))
-    return out
-
-
 def host_rounds_paths(inst, vars_a, inputs_a, nizk_ctx, snark_ctx) -> dict:
     """The 2^20 NIZK and SNARK proved again in this process with every
     bullet round on the host (DEVICE_MIN infinite): the bytes must equal
@@ -2391,17 +2274,6 @@ def main() -> int:
             f"{counts['bullet_step_by_mode']}")
     host_rounds = host_rounds_paths(inst, vars_a, inputs_a, nizk_ctx,
                                     snark_ctx)
-    gated = device_prover_paths(dev, inst, vars_a, inputs_a, nizk_ctx,
-                                snark_ctx)
-    # B1 under the gate only where the host path launches it (the witness
-    # and Spark commitments): never with the ZK rounds' tape secrets
-    for what, host in (("nizk", summary["launches"]),
-                       ("snark", snark["launches"]["prove"])):
-        if gated[what]["launches"]["row_msm"] != host["row_msm"]:
-            raise AssertionError(f"B1 under the gate in the {what} prove: "
-                                 f"{gated[what]['launches']['row_msm']} "
-                                 f"launches, the host path's "
-                                 f"{host['row_msm']}")
     # after the replay's comparison above: the sharded runs reset the
     # counters again
     sharded = sharded_paths(dev, gen, inst, vars_a, inputs_a, nizk_ctx,
@@ -2411,9 +2283,6 @@ def main() -> int:
         name: {"nizk_prove": summary["launches"][name],
                "snark_encode": snark["launches"]["encode"][name],
                "snark_prove": snark["launches"]["prove"][name],
-               "nizk_prove_device_prover": gated["nizk"]["launches"][name],
-               "snark_prove_device_prover":
-                   gated["snark"]["launches"][name],
                "nizk_prove_sharded":
                    sharded["nizk_prove"]["launches"][name],
                "snark_encode_sharded":
@@ -2453,8 +2322,11 @@ def main() -> int:
         dict(name="strobe_step (keccak-f[1600])", route="cuda",
              source="spartan_tpu_torch/csrc/keccak.cu",
              replaces="spartan_tpu/transcript/device.py:89",
-             launches=gated["nizk"]["launches"]["strobe_step"],
+             launches=summary["launches"]["strobe_step"],
              launches_by_path=by_path["strobe_step"], library_ms=None,
+             note="no prover path launches K3 (the device transcript's "
+                  "one user, the device-resident prover, is not ported): "
+                  "0 launches in every prove; checked and timed alone",
              **k3),
         dict(name="ristretto_compress", route="cuda",
              source="spartan_tpu_torch/csrc/ristretto.cu",

@@ -47,10 +47,9 @@
 // CIOS of fq.cuh, run side by side where they are independent (a
 // table's two folds; the comb at X = 0, 2, 3), so that each warp has
 // more than one chain to issue from.  The challenge r arrives in
-// Montgomery form, by value from the host path or, for the device prover
-// (protocols/device_prover.py), as a pointer to the 8 words the device
-// transcript squeezed (a template flag: the by-value kernels are as
-// they were).
+// Montgomery form, by value from the host path or as a pointer to the 8
+// words a device transcript squeezed (a template flag: the by-value
+// kernels are as they were; no prover path passes a pointer).
 //
 // It replaces a first design of one thread per pair at 162-188
 // registers (8 warps a SM), a shared-memory tree per block and a second

@@ -2,9 +2,9 @@
 // encoding s of point k, as 8 little-endian words.
 //
 // Replaces spartan_tpu/curve/ristretto.py:26 (compress, XLA ops, not a
-// Pallas kernel): the bullet rounds and the device prover compress their
-// Pedersen commitments on the card, so the transcript can absorb them
-// with no fetch.
+// Pallas kernel): the bullet rounds and the dot-product-log compress
+// their Pedersen commitments on the card, so one fetch brings their
+// encodings to the host transcript.
 //
 // Bound on this card: operations.  One encode is 284 field products (the
 // inverse square root's 251 squarings and 11 products, 22 more around

@@ -8,10 +8,9 @@ ints, host points): below ``HOST_MAX`` points it stays on the host
 The variable-base MSMs of the bullet rounds, whose points change every
 round (the folded generators), go through kernel K5
 (``curve/point_msm.py``), chosen by ``protocols/bullet.py::DEVICE_MIN``
-(a measured constant, not an option), and so do the device
-dot-product-log's under ``SPARTAN_TPU_DEVICE_PROVER=1``.  The JAX
-package's XLA MSM families were TPU compile choices and have no
-counterpart here.
+(a measured constant, not an option), and so does the dot-product-log's
+commitment Cx.  The JAX package's XLA MSM families were TPU compile
+choices and have no counterpart here.
 """
 
 from __future__ import annotations

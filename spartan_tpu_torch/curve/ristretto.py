@@ -6,8 +6,9 @@ encoder: the canonical coordinates come off the device as X|Y|Z|T
 native library each point is encoded by the Python core.
 
 ``compress`` keeps the encoding on the device (the JAX package's
-``curve/ristretto.py:26``), for the device prover: kernel K4
-(``csrc/ristretto.cu``) on the card, ``compress_plain`` on the CPU.
+``curve/ristretto.py:26``), for the device bullet rounds and the
+dot-product-log's Cx: kernel K4 (``csrc/ristretto.cu``) on the card,
+``compress_plain`` on the CPU.
 """
 
 from __future__ import annotations

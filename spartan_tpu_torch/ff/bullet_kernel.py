@@ -6,7 +6,9 @@ CPU; there is no fallback from one to the other.  It replaces the JAX
 package's XLA scalar work of its device bullet rounds:
 ``protocols/bullet.py:89`` (``_bullet_fold_jit``) and the scalar part of
 ``protocols/device_prover.py:682-748`` (``_bullet_round_fn``), with the
-device dot-product-log's head and tail.
+device dot-product-log's head and tail.  The bullet rounds
+(``protocols/bullet.py``) launch the cross and fold modes; no prover
+path launches head or tail, whose user there is not ported.
 
 Residues are ``(..., 8)`` int32 Montgomery unless named canonical; ``a``
 and ``b`` are ``(n, 8)`` with m = n/2.  A challenge (``u``, ``r``, ``c``)

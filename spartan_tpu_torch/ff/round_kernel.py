@@ -130,10 +130,10 @@ def fold_evals(tables, r, mode: str):
     """Kernel B2 on the card, its plain version on the CPU.  ``r`` is the
     challenge: a Python int (passed by value), or an (8,) int32
     Montgomery tensor on the tables' device that the kernel reads
-    through a pointer (the device prover's squeezed challenges; no
-    fetch).  Launches are counted in ``fold_evals.launches``, a Counter
-    keyed by (comb, batch, n, mode); those with a device ``r`` also in
-    ``fold_evals.launches_device_r``."""
+    through a pointer (a challenge squeezed by ``transcript.device``,
+    with no fetch; no prover path passes one).  Launches are counted in
+    ``fold_evals.launches``, a Counter keyed by (comb, batch, n, mode);
+    those with a device ``r`` also in ``fold_evals.launches_device_r``."""
     batch, n = _check(tables, r, mode)
     dev = tables[0].device
     if dev.type == "cpu":

@@ -57,16 +57,6 @@ def eq_evaluate(r: list[int], rx: list[int]) -> int:
     return acc
 
 
-def bound_var_top(Z: torch.Tensor, r: int) -> torch.Tensor:
-    """bound_poly_var_top (dense_mlpoly.rs:215-223): halve the table,
-    new[i] = Z[i] + r*(Z[i+n/2] - Z[i])."""
-    n = Z.shape[0] // 2
-    z = limb.unpack(Z)
-    rm = limb.unpack(fq.mont_limbs(r, Z.device))
-    lo, hi = z[:n], z[n:]
-    return limb.pack(fq.add16(lo, fq.mul16(rm, fq.sub16(hi, lo))))
-
-
 def evaluate(Z: torch.Tensor, r: list[int]) -> int:
     """Z~(r) in O(n): <eq_evals(r), Z> (dense_mlpoly.rs:236-242)."""
     chis = eq_evals(r, Z.device)

@@ -15,8 +15,7 @@ The bytes are the same either way.  ``DEVICE_MIN`` is a constant of the
 measurement, not an option: the JAX package kept its device rounds off
 by default only for their TPU compile cost (one ladder executable per
 halved shape), which the port does not pay.  Transcript I/O is
-host-side; the device dot-product-log (``device_prover.py``) runs the
-same device round with the transcript on the card.
+host-side.
 """
 
 from __future__ import annotations

@@ -3,10 +3,6 @@ dot-product argument via the bullet reduction.  The witness vector and
 the public vector are device tables; transcript and final sigma algebra
 are host-side; the large bullet rounds run on the device (``bullet.py``),
 and with them the commitment Cx (kernel K5, constant time).
-Under ``SPARTAN_TPU_DEVICE_PROVER=1`` the whole proof runs on the device
-with its transcript on the card and one fetch
-(``device_prover.dotproduct_log_device``), as the JAX package's
-``dotproduct_log.py:43-56`` does under its own gate.
 """
 
 from __future__ import annotations
@@ -46,13 +42,6 @@ class DotProductProofLog:
               ) -> tuple["DotProductProofLog", bytes, bytes]:
         """x_dev / a_dev: (n, 8) Montgomery tables; a_ints: the same
         public vector as ints (for the transcript append)."""
-        from .sumcheck import _use_device_prover
-
-        if _use_device_prover() and x_dev.shape[0] >= 2:
-            from .device_prover import dotproduct_log_device
-
-            return dotproduct_log_device(gens, transcript, tape, x_dev,
-                                         blind_x, a_dev, a_ints, y, blind_y)
         transcript.append_protocol_name(DotProductProofLog.PROTOCOL)
         n = x_dev.shape[0]
         assert gens.n == n

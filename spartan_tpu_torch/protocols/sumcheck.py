@@ -20,11 +20,15 @@ Under a device mesh (``parallel/context.py``) the ZK phases' tables,
 and the product layers' tables that their site passes in, are sharded
 over the mesh, one B2 launch a shard a round (``parallel/mesh.py``),
 for the same bytes.
+
+This is the port's one prover path.  The JAX package's opt-in
+device-resident loops (its ``protocols/device_prover.py``, with the
+transcript on the device and one fetch a phase) are not ported: on the
+H100 they proved slower than these rounds.
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import torch
@@ -42,26 +46,6 @@ from ..poly.unipoly import UniPoly
 from ..utils.errors import ProofVerifyError
 from . import _combs
 from .sigma import DotProductProof, _decompress
-
-
-def _use_device_prover() -> bool:
-    """The device-resident ZK phases and product layers
-    (``protocols/device_prover.py``): opt-in, SPARTAN_TPU_DEVICE_PROVER=1,
-    as in the JAX package (its ``protocols/sumcheck.py:37-62``).  Off
-    under a device mesh: the sharded host-path rounds run there (the
-    device transcript is one device's)."""
-    if pctx.get_mesh() is not None:
-        return False
-    return os.environ.get("SPARTAN_TPU_DEVICE_PROVER", "0") == "1"
-
-
-def _use_device_nonzk() -> bool:
-    """The device-resident product layers only: opt-in,
-    SPARTAN_TPU_DEVICE_NONZK=1 (JAX ``protocols/sumcheck.py:65-88``);
-    off under a device mesh, as above."""
-    if pctx.get_mesh() is not None:
-        return False
-    return os.environ.get("SPARTAN_TPU_DEVICE_NONZK", "0") == "1"
 
 
 @dataclass
@@ -259,12 +243,6 @@ class ZKSumcheckInstanceProof:
                    poly_A: torch.Tensor, poly_B: torch.Tensor,
                    gens_1: MultiCommitGens, gens_n: MultiCommitGens,
                    transcript: Transcript, tape: RandomTape):
-        if _use_device_prover():
-            from .device_prover import zk_sumcheck_phase_device
-
-            return zk_sumcheck_phase_device(
-                claim, blind_claim, num_rounds, [poly_A, poly_B], "quad",
-                gens_1, gens_n, transcript, tape)
         return ZKSumcheckInstanceProof._prove_rounds(
             claim, blind_claim, num_rounds, [poly_A, poly_B], "quad",
             gens_1, gens_n, transcript, tape)
@@ -275,13 +253,6 @@ class ZKSumcheckInstanceProof:
             poly_A, poly_B, poly_C, poly_D,
             gens_1: MultiCommitGens, gens_n: MultiCommitGens,
             transcript: Transcript, tape: RandomTape):
-        tables = [poly_A, poly_B, poly_C, poly_D]
-        if _use_device_prover():
-            from .device_prover import zk_sumcheck_phase_device
-
-            return zk_sumcheck_phase_device(
-                claim, blind_claim, num_rounds, tables, "cubic", gens_1,
-                gens_n, transcript, tape)
         return ZKSumcheckInstanceProof._prove_rounds(
-            claim, blind_claim, num_rounds, tables, "cubic", gens_1, gens_n,
-            transcript, tape)
+            claim, blind_claim, num_rounds, [poly_A, poly_B, poly_C, poly_D],
+            "cubic", gens_1, gens_n, transcript, tape)

@@ -1,7 +1,10 @@
 """Device-resident merlin transcript (the JAX package's
 ``transcript/device.py``): the STROBE-128 sponge state lives on the
-device, so a sum-check round can absorb its commitments and squeeze its
-challenge with no fetch.
+device, so a round on the device could absorb its commitments and
+squeeze its challenge with no fetch.  No prover path uses it: the
+port's prover keeps its transcript on the host (``core.merlin``), and
+the JAX package's device-resident prover, its one user there, is not
+ported.
 
 Every label and length in Spartan's transcript schedule is known on the
 host; only scalar and point values are data.  So ``pos``, ``pos_begin``

@@ -2,7 +2,7 @@
 
 Every blocking device->host fetch on the prover path funnels through
 ``ff.fq.decode_to_ints`` (round evals, final claims, evaluations) or
-``fetch`` (the device prover's packed results), so
+``fetch`` (the bullet rounds' packed results, the encoding of Cx), so
 the fetches per phase and the time the host stalled on them are
 measured there.  ``utils.timer.Timer`` prints the per-phase delta when
 profiling is on

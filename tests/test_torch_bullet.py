@@ -11,11 +11,11 @@ of the port, on the CPU through the kernels' plain versions.
   the same transcript and blinds: equal ``L_vec``, ``R_vec``, ``a_hat``,
   ``b_hat``, ``g_hat``, ``Gamma_hat``, ``blind_fin`` and final
   transcript state.
-* The device dot-product-log (``SPARTAN_TPU_DEVICE_PROVER=1``) against
-  the JAX package's ``DotProductProofLog.prove`` on its host path with
-  the inputs of ``tests/test_device_prover.py``'s dot-product-log test
-  (n = 16, tape seed 31): equal bytes and ``post`` challenge, and the
-  proof verifies.
+* ``DotProductProofLog.prove``, with its bullet rounds on the host (the
+  default on the CPU) and on the device, against the JAX package's
+  ``DotProductProofLog.prove`` on its host path with the inputs of
+  ``tests/test_device_prover.py``'s dot-product-log test (n = 16, tape
+  seed 31): equal bytes and ``post`` challenge, and the proof verifies.
 
 The JAX package's side of both is recorded in
 ``tests/golden/port/bullet-*.npz`` (``record.py``).
@@ -161,9 +161,11 @@ def _dplog_inputs():
     return n, x_ints, a_ints, sum(a * b for a, b in zip(x_ints, a_ints)) % Q
 
 
-def test_device_dotproduct_log_equals_jax_host_path(monkeypatch):
-    monkeypatch.setenv("SPARTAN_TPU_DEVICE_PROVER", "1")
-    monkeypatch.delenv("SPARTAN_TPU_DEVICE_DPLOG", raising=False)
+@pytest.mark.parametrize("device_rounds", [False, True],
+                         ids=["default_device_min", "device_min_1"])
+def test_dotproduct_log_equals_jax_host_path(device_rounds, monkeypatch):
+    if device_rounds:
+        monkeypatch.setitem(bullet.DEVICE_MIN, "cpu", 1)
     n, x_ints, a_ints, y = _dplog_inputs()
     jax_proof = load("bullet-dplog")
 

@@ -222,7 +222,7 @@ def test_eq_evals_kernel_vs_plain(dev, ell):
 
 
 # (a shape, b shape, dim): Spark's batched evaluations and dense.evaluate
-# (k = 1), bound_L (o = 1), the device prover's, ragged sizes, and two
+# (k = 1), bound_L (o = 1), short vectors, ragged sizes, and two
 # full operands (the products by K7, then K8's plain sum)
 DOT_CASES = [((1 << 21, 8), (1 << 21, 8), 0),
              ((12, 1 << 20, 8), (1 << 20, 8), 1),
@@ -628,47 +628,6 @@ def test_fold_evals_kernel_device_r(dev, ntab, shape, mode):
         assert torch.equal(a, b) and torch.equal(a, c)
     if mode != "fold":
         assert torch.equal(got[1], want[1]) and torch.equal(got[1], plain[1])
-
-
-@pytest.mark.parametrize("gate", ["SPARTAN_TPU_DEVICE_PROVER",
-                                  "SPARTAN_TPU_DEVICE_NONZK"])
-def test_golden_snark_device_prover_on_the_card(dev, gate, monkeypatch):
-    import os
-
-    from spartan_tpu_torch import serialize as ser
-    from spartan_tpu_torch.api import SNARK, Instance, SNARKGens
-    from spartan_tpu_torch.core.merlin import Transcript
-
-    monkeypatch.setenv(gate, "1")
-    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
-        16, 16, 2, seed=424242, device=dev)
-    gens = SNARKGens(16, 16, 2, 16)
-    comm, decomm = SNARK.encode(inst, gens)
-    snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,
-                        Transcript(b"golden_snark"), _tape_seed=31337)
-    golden = os.path.join(os.path.dirname(__file__), "golden",
-                          "snark_proof.bin")
-    with open(golden, "rb") as f:
-        assert ser.snark_to_bytes(snark) == f.read()
-    snark.verify(comm, inputs_a, Transcript(b"golden_snark"), gens)
-
-
-def test_golden_nizk_device_prover_on_the_card(dev, monkeypatch):
-    import os
-
-    from spartan_tpu_torch import serialize as ser
-    from spartan_tpu_torch.api import NIZK, Instance, NIZKGens
-    from spartan_tpu_torch.core.merlin import Transcript
-
-    monkeypatch.setenv("SPARTAN_TPU_DEVICE_PROVER", "1")
-    inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
-        16, 16, 2, seed=424242, device=dev)
-    nizk = NIZK.prove(inst, vars_a, inputs_a, NIZKGens(16, 16, 2),
-                      Transcript(b"golden_nizk"), _tape_seed=31337)
-    golden = os.path.join(os.path.dirname(__file__), "golden",
-                          "nizk_proof.bin")
-    with open(golden, "rb") as f:
-        assert ser.nizk_to_bytes(nizk) == f.read()
 
 
 def _points(n, seed, device):

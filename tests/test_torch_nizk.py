@@ -112,16 +112,21 @@ def test_writer_reader_roundtrip(port):
         ser.nizk_from_bytes(bytes(bad))
 
 
-def test_large_msm_paths_give_the_same_bytes(port, monkeypatch):
+@pytest.mark.parametrize("row_msm_vmsm", [False, True],
+                         ids=["bullet_rounds_on_the_device",
+                              "and_vmsm_through_the_row_msm"])
+def test_large_msm_paths_give_the_same_bytes(port, monkeypatch,
+                                             row_msm_vmsm):
     """The MSM branches that the prover and verifier take only at large
-    sizes (``vmsm`` from HOST_MAX points through the row-MSM; the
-    dot-product-log's Cx through K5 and its rounds on the device from
-    2 bullet.DEVICE_MIN entries) forced at the golden shape: the same
-    bytes, and the proof verifies."""
+    sizes forced at the golden shape: the dot-product-log's Cx through K5
+    and every bullet round on the device (from 2 bullet.DEVICE_MIN
+    entries), and with them ``vmsm`` from HOST_MAX points through the
+    row-MSM.  The same bytes, and the proof verifies."""
     from spartan_tpu_torch.curve import msm as dmsm
     from spartan_tpu_torch.protocols import bullet
 
-    monkeypatch.setattr(dmsm, "HOST_MAX", 4)
+    if row_msm_vmsm:
+        monkeypatch.setattr(dmsm, "HOST_MAX", 4)
     monkeypatch.setitem(bullet.DEVICE_MIN, "cpu", 1)
     inst, inputs_a, gens, blob = port
     _, vars_a, _ = Instance.produce_synthetic_r1cs(*SHAPE, seed=424242,

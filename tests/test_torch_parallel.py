@@ -14,8 +14,7 @@ meshes of CPU devices.
 * Under ``Mesh(["cpu"] * 2)`` and ``Mesh(["cpu"] * 4)`` the golden NIZK
   and SNARK come out byte for byte as ``tests/golden/``, with sharded
   rounds and row blocks counted.
-* ``get_mesh()`` treats a one-device mesh as none, and the device-prover
-  gates are off under a mesh.
+* ``get_mesh()`` treats a one-device mesh as none.
 
 No JAX prove or compile.
 """
@@ -45,7 +44,6 @@ from spartan_tpu_torch.ff.round_kernel import fold_evals
 from spartan_tpu_torch.parallel import context as pctx
 from spartan_tpu_torch.parallel import mesh as pmesh
 from spartan_tpu_torch.protocols import _combs
-from spartan_tpu_torch.protocols import sumcheck
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 SHAPE = (16, 16, 2)
@@ -255,15 +253,6 @@ def test_one_device_mesh_is_none():
     with pctx.use_mesh(mesh):
         assert pctx.get_mesh() is mesh
     assert pctx.get_mesh() is None
-
-
-def test_device_prover_gates_off_under_a_mesh(monkeypatch):
-    monkeypatch.setenv("SPARTAN_TPU_DEVICE_PROVER", "1")
-    monkeypatch.setenv("SPARTAN_TPU_DEVICE_NONZK", "1")
-    assert sumcheck._use_device_prover() and sumcheck._use_device_nonzk()
-    with pctx.use_mesh(pmesh.Mesh(["cpu"] * 2)):
-        assert not sumcheck._use_device_prover()
-        assert not sumcheck._use_device_nonzk()
 
 
 def test_make_mesh_needs_a_card():

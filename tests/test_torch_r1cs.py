@@ -30,12 +30,9 @@ def test_eq_evals(ell):
     assert dense.to_ints(dense.eq_evals(r, "cpu")) == _eq_evals_host(r)
 
 
-def test_bound_var_top_evaluate_bound_L():
+def test_evaluate_bound_L():
     Z = _ints(64, 1)
     T = dense.from_ints(Z, "cpu")
-    r = 424242
-    assert dense.to_ints(dense.bound_var_top(T, r)) == [
-        (Z[j] + r * (Z[j + 32] - Z[j])) % Q for j in range(32)]
     pt = _ints(6, 2)
     chi = _eq_evals_host(pt)
     assert dense.evaluate(T, pt) == sum(c * z for c, z in zip(chi, Z)) % Q

@@ -7,6 +7,14 @@ The JAX step's outputs at three small shapes are recorded in
 ``tests/golden/port/round-*.npz`` (``record.py``); the larger shape and a
 chain of rounds are checked against python-int arithmetic.  Exact:
 equality.
+
+The ZK sum-check built on those rounds
+(``ZKSumcheckInstanceProof.prove_quad`` /
+``prove_cubic_with_additive_term``) proves and verifies on random
+tables, its last evaluation commitment held against python ints; its
+verifier refuses short and tampered proofs; its round commitments (tape
+secrets) never reach the variable-time row-MSM B1; and
+``UniPoly.from_evals`` equals Lagrange interpolation over python ints.
 """
 
 import random
@@ -20,8 +28,16 @@ from golden.port.record import load, to_ints
 from port_limits import *  # noqa: F403  (time limit, no XLA)
 from spartan_tpu.core.field import Q
 from spartan_tpu_torch import interop
+from spartan_tpu_torch.commitments import MultiCommitGens, commit_scalar
+from spartan_tpu_torch.core import ristretto as hri
+from spartan_tpu_torch.core.merlin import RandomTape, Transcript
+from spartan_tpu_torch.curve import msm as dmsm
+from spartan_tpu_torch.curve import row_msm as rm
 from spartan_tpu_torch.ff import fq
 from spartan_tpu_torch.ff import round_kernel as rk
+from spartan_tpu_torch.poly.unipoly import UniPoly
+from spartan_tpu_torch.protocols.sumcheck import ZKSumcheckInstanceProof
+from spartan_tpu_torch.utils.errors import ProofVerifyError
 
 
 def _tables(ntab, n, seed):
@@ -112,3 +128,110 @@ def test_fold_evals_checks_inputs():
     with pytest.raises(ValueError):
         rk.fold_evals([t, t], 3, "evals")
     assert torch.equal(rk.fold_evals([t, t], None, "evals")[0][0], t)
+
+
+# the ZK sum-check's two combs: tables, degree, and the comb of one entry
+ZK_COMBS = {"quad": (2, 2, lambda v: v[0] * v[1]),
+            "cubic": (4, 3, lambda v: v[0] * (v[1] * v[2] - v[3]))}
+ZK_ROUNDS = 4
+
+
+def _zk_prove(which, seed, label=b"zk"):
+    """A ZK phase over random tables of 2^ZK_ROUNDS entries.  Returns the
+    python-int tables, the claim, its blind, the gens and the prover's
+    output (proof, r, final claims, last blind)."""
+    ntab, deg, comb = ZK_COMBS[which]
+    ints = _tables(ntab, 1 << ZK_ROUNDS, seed)
+    claim = sum(comb(v) for v in zip(*ints)) % Q
+    blind = 4321 + seed
+    gens_1 = MultiCommitGens(1, b"gens_1")
+    gens_n = MultiCommitGens(deg + 1, b"gens_n")
+    prove = (ZKSumcheckInstanceProof.prove_quad if which == "quad" else
+             ZKSumcheckInstanceProof.prove_cubic_with_additive_term)
+    out = prove(claim, blind, ZK_ROUNDS, *_ours(ints), gens_1, gens_n,
+                Transcript(label), RandomTape(b"tape", seed=seed))
+    return ints, claim, blind, gens_1, gens_n, out
+
+
+@pytest.mark.parametrize("which", sorted(ZK_COMBS))
+def test_zk_sumcheck_prove_verify(which):
+    ints, claim, blind, gens_1, gens_n, out = _zk_prove(which, seed=5)
+    proof, r, finals, last_blind = out
+    comm_claim = hri.encode(commit_scalar(claim, blind, gens_1))
+    comm_eval, r_v = proof.verify(comm_claim, ZK_ROUNDS, ZK_COMBS[which][1],
+                                  gens_1, gens_n, Transcript(b"zk"))
+    assert r_v == r and len(r) == ZK_ROUNDS
+    # the tables bound at r by python ints: the final claims, and the last
+    # commitment is to their comb under the returned blind
+    for r_j in r:
+        ints = _int_round(ints, r_j)
+    assert finals == [t[0] for t in ints]
+    want = ZK_COMBS[which][2](finals) % Q
+    assert comm_eval == proof.comm_evals[-1] == hri.encode(
+        commit_scalar(want, last_blind, gens_1))
+    with pytest.raises(ProofVerifyError):
+        proof.verify(hri.encode(commit_scalar(claim + 1, blind, gens_1)),
+                     ZK_ROUNDS, ZK_COMBS[which][1], gens_1, gens_n,
+                     Transcript(b"zk"))
+    proof.comm_polys[1] = proof.comm_polys[0]
+    with pytest.raises(ProofVerifyError):
+        proof.verify(comm_claim, ZK_ROUNDS, ZK_COMBS[which][1], gens_1,
+                     gens_n, Transcript(b"zk"))
+
+
+def test_zk_sumcheck_verify_rejects_short_proofs():
+    """One dot-product proof fewer than rounds: a ProofVerifyError, not an
+    IndexError (ROADMAP queue C)."""
+    _, claim, blind, gens_1, gens_n, out = _zk_prove("quad", seed=6)
+    proof = out[0]
+    short = ZKSumcheckInstanceProof(proof.comm_polys, proof.comm_evals,
+                                    proof.proofs[:-1])
+    with pytest.raises(ProofVerifyError):
+        short.verify(hri.encode(commit_scalar(claim, blind, gens_1)),
+                     ZK_ROUNDS, 2, gens_1, gens_n, Transcript(b"zk"))
+
+
+@pytest.mark.parametrize("which", sorted(ZK_COMBS))
+def test_zk_phase_never_commits_secrets_with_b1(which, monkeypatch):
+    """The round polynomials, evaluations and sigma nonces are tape
+    secrets: the phase commits them on the constant-time host ladder,
+    never through the variable-time row-MSM B1."""
+    def b1(*a, **k):
+        raise AssertionError("B1 launched in a ZK sum-check phase")
+
+    for mod, name in ((rm, "row_msm"), (rm, "row_msm_plain"),
+                      (dmsm, "row_msm")):
+        monkeypatch.setattr(mod, name, b1)
+    proof = _zk_prove(which, seed=7)[-1][0]
+    assert len(proof.proofs) == ZK_ROUNDS
+    # B1 is blocked, not merely unreached by these sizes
+    with pytest.raises(AssertionError, match="B1"):
+        dmsm.msm(fq.encode_ints([1]), [MultiCommitGens(1, b"g").G[0]])
+
+
+@pytest.mark.parametrize("which", sorted(ZK_COMBS))
+def test_unipoly_from_evals_against_python_ints(which):
+    rng = random.Random(len(which))
+    npts = ZK_COMBS[which][1] + 1
+    evals = [rng.randrange(Q) for _ in range(npts)]
+    poly = UniPoly.from_evals(evals)
+    assert poly.degree() == npts - 1
+
+    def lagrange(x):
+        acc = 0
+        for i, e in enumerate(evals):
+            num = den = 1
+            for j in range(npts):
+                if j != i:
+                    num = num * (x - j) % Q
+                    den = den * (i - j) % Q
+            acc += e * num * pow(den, -1, Q)
+        return acc % Q
+
+    for x in [0, 1, 2, 3, rng.randrange(Q), Q - 1]:
+        assert poly.evaluate(x) == lagrange(x)
+    assert (poly.eval_at_zero(), poly.eval_at_one()) == tuple(evals[:2])
+    hint = (evals[0] + evals[1]) % Q
+    compressed = poly.compress()
+    assert len(compressed) == npts - 1
+    assert UniPoly.decompress(compressed, hint).coeffs == poly.coeffs

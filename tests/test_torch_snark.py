@@ -5,6 +5,7 @@ the JAX package's frozen wire bytes.
   ``Transcript(b"golden_snark")`` (``tests/test_golden.py``), the port's
   computation commitment and SNARK proof equal ``tests/golden/`` byte for
   byte: the JAX package's bytes, so no JAX SNARK runs here.
+* So does the proof with every bullet round on the device.
 * The port verifies the golden proof and rejects tampered copies and a
   wrong input count; its writer and reader round-trip both blobs.
 """
@@ -45,8 +46,8 @@ def port():
     comm, decomm = SNARK.encode(inst, gens)
     snark = SNARK.prove(inst, comm, decomm, vars_a, inputs_a, gens,
                         Transcript(b"golden_snark"), _tape_seed=31337)
-    return dict(inst=inst, inputs=inputs_a, gens=gens,
-                comm=ser.commitment_to_bytes(comm),
+    return dict(inst=inst, vars=vars_a, inputs=inputs_a, gens=gens,
+                decomm=decomm, comm=ser.commitment_to_bytes(comm),
                 proof=ser.snark_to_bytes(snark))
 
 
@@ -63,6 +64,23 @@ def test_golden_commitment_bytes(port):
 
 def test_golden_snark_bytes(port):
     assert port["proof"] == _golden("snark_proof.bin")
+
+
+def test_golden_snark_with_bullet_rounds_on_the_device(port, monkeypatch):
+    """Every bullet round of the SNARK's dot-product-log proofs on the
+    device (``bullet.DEVICE_MIN`` of the CPU set to 1: kernels K5, K6 and
+    K4 through their plain versions): the golden bytes, and the proof
+    verifies."""
+    from spartan_tpu_torch.protocols import bullet
+
+    monkeypatch.setitem(bullet.DEVICE_MIN, "cpu", 1)
+    comm = ser.commitment_from_bytes(port["comm"])
+    snark = SNARK.prove(port["inst"], comm, port["decomm"], port["vars"],
+                        port["inputs"], port["gens"],
+                        Transcript(b"golden_snark"), _tape_seed=31337)
+    blob = ser.snark_to_bytes(snark)
+    assert blob == _golden("snark_proof.bin")
+    _verify(port, blob)
 
 
 def test_port_verifies_golden_snark(port):

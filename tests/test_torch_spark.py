@@ -174,7 +174,8 @@ def _evaluate(tab_ints, r):
     return dense.evaluate(fq.encode_ints(tab_ints), r)
 
 
-def test_product_circuit_prove_verify():
+@pytest.mark.parametrize("with_dotp", [False, True])
+def test_product_circuit_prove_verify(with_dotp):
     B, n = 3, 16
     leaves = _ints((B, n), seed=3)
     for b in range(B):
@@ -187,11 +188,13 @@ def test_product_circuit_prove_verify():
         for v in leaves[b]:
             want = want * v % Q
         assert roots[b] == want
-    dotp = DotProductCircuitBatch(*(_ours(h) for h in halves))
-    dotp_vals = dotp.evaluate()
-    assert dotp_vals == [sum(x * y % Q * z for x, y, z in
-                             zip(*(h[k] for h in halves))) % Q
-                         for k in range(2)]
+    dotp, dotp_vals = None, []
+    if with_dotp:
+        dotp = DotProductCircuitBatch(*(_ours(h) for h in halves))
+        dotp_vals = dotp.evaluate()
+        assert dotp_vals == [sum(x * y % Q * z for x, y, z in
+                                 zip(*(h[k] for h in halves))) % Q
+                             for k in range(2)]
 
     proof, rand = ProductCircuitEvalProofBatched.prove(
         prod, dotp, Transcript(b"pc"))
@@ -201,7 +204,8 @@ def test_product_circuit_prove_verify():
     # the final claims are the leaf polynomials at rand; the dot-product
     # ones are the whole (two-half) tables at rand
     assert claims == [_evaluate(leaves[b], rand) for b in range(B)]
-    assert claims_dotp == [_evaluate(h[0] + h[1], rand) for h in halves]
+    assert claims_dotp == ([_evaluate(h[0] + h[1], rand) for h in halves]
+                           if with_dotp else [])
 
     proof.proof[2].claims_prod_left[0] += 1
     with pytest.raises(ProofVerifyError):
