@@ -67,6 +67,12 @@ slice of a larger table, timed at 2^20 beside its bound; its other modes
 against its plain version, timed beside its bound and the plain
 version's time); the launches of K7 and K8 by mode in the 2^20 SNARK's
 encode and prove (``K7/K8 launches by mode ...``, every mode there);
+the Fq sparse product K9 (``csrc/fq_spmv.cu``) on the benchmark
+circuit's 2^20 matrices by row and by column against its plain version,
+timed beside its bound and the plain version's time, and the
+evaluation's three launches and dot (``spmv ...`` lines); K9's launches
+in the 2^20 NIZK and SNARK proves (``K9 launches ...``: 6 and 9, with no
+call of its int64 plain version on the card);
 forced launch failures of K5 and K4 and forced build failures of K6
 and K3, each of which must raise with no plain version run in its
 place; then a host round and a device round timed at n = 2^1 ... 2^12
@@ -87,8 +93,8 @@ bit at the first sharded shapes, 4 launches at n/4 timed beside one at
 n); and the two-tier collectives on the card listed 8 times as (2
 hosts, 4 devices) against python ints and the host MSM (``dcn
 {...}``).  It ends with a JSON line per kernel (B2's batched mode its
-own line, K3, K4, K5, K6, the Montgomery map and K7's other modes with
-K8 theirs), the card's line from nvidia-smi
+own line, K3, K4, K5, K6, the Montgomery map, K7's other modes with
+K8, and K9 theirs), the card's line from nvidia-smi
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; with no card it exits 2 before printing any result.  All inputs are made from fixed
 seeds.
@@ -178,7 +184,7 @@ def build_kernels() -> None:
         return path, report, time.perf_counter() - t0
 
     names = ["row_msm", "fold_evals", "keccak", "ristretto", "point_msm",
-             "bullet_step", "fq_elementwise", "fq_reduce"]
+             "bullet_step", "fq_elementwise", "fq_reduce", "fq_spmv"]
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = {n: pool.submit(timed, n) for n in names}
         for name in names:
@@ -510,8 +516,13 @@ FQ_TIMED = [("mul table", "mul", (12, 1 << 19), "table"),
             ("dot evaluate", "dot", (1 << 20,), (1 << 20,)),
             ("sum dotp", "sum", (6, 1 << 19), None)]
 # the modes a SNARK prove launches
-FQ_PROVE_MODES = ("add", "dot", "eq", "from_mont", "mul", "sub", "sum",
-                  "to_mont")
+FQ_PROVE_MODES = ("add", "dot", "eq", "from_mont", "mul", "spmv", "sub",
+                  "sum", "to_mont")
+# K9's launches in a 2^20 prove: Az, Bz, Cz and the three eval tables,
+# and in the SNARK the evaluation's three
+SPMV_PER_PROVE = {"NIZK": 6, "SNARK": 9}
+# the benchmark's circuit (benchmark/configs/*.json: circuit_seed)
+CIRCUIT_SEED = 3141592653
 
 
 def fq_bound(mode: str, n: int, b, extra: int = 0) -> dict:
@@ -615,6 +626,99 @@ def check_fq_kernels(dev, gen) -> dict:
     result["eq table"] = dict(mode="eq", shape=[1 << ell], launches=ell,
                               ms=ms, eager_ms=eager, plain_ms=p_ms,
                               max_abs_err=0, **bound)
+    return result
+
+
+def spmv_bound(nnz: int, n_out: int) -> dict:
+    """Bytes: each non-zero's index (4), value (32) and gathered input
+    (32), each output's offset (4) and element written (32); operations:
+    a Montgomery product a non-zero."""
+    t_bytes = (68 * nnz + 36 * n_out) / HBM_BYTES_S * 1e3
+    t_ops = nnz * FQ_MUL_WIDE * IMAD_PER_WIDE / IMAD_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def check_spmv(dev, gen) -> dict:
+    """K9 (``ff/spmv.py``) on the benchmark circuit's three 2^LOG_N
+    matrices (random values): by row into 2^LOG_N outputs from a
+    2^(LOG_N+1) z and by column into 2^(LOG_N+1) outputs from a 2^LOG_N
+    eq table, each against its plain version word for word, timed in a
+    CUDA graph and launched one by one beside its bound and the plain
+    version's time; then the evaluation's three by row and its dot (K8)
+    in one graph, and the whole evaluation (``evaluate_tables``: two eq
+    tables, three K9 launches, one dot, one fetch) by the host's clock."""
+    import types
+
+    import torch
+
+    from benchmark.circuit import Circuit
+    from spartan_tpu_torch.core.field import Q
+    from spartan_tpu_torch.ff import fq, spmv
+    from spartan_tpu_torch.r1cs.shape import SparseMatPolynomial
+
+    n = 1 << LOG_N
+    mats = Circuit(n, n, 10, CIRCUIT_SEED).matrices()
+    vals = [with_edges(rand_elems(gen, n, dev), [0, 1, Q - 1])
+            for _ in mats]
+    tables = {}
+    for name, (rows, cols, _), v in zip("ABC", mats, vals):
+        tables[f"{name} by_row"] = spmv.SpmvTable(rows, cols, v, n)
+        tables[f"{name} by_col"] = spmv.SpmvTable(cols, rows, v, 2 * n)
+    result = {}
+    for name, t in tables.items():
+        x = rand_elems(gen, 2 * n if t.n_out == n else n, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = spmv.spmv_plain(t, x)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        before = fq.launches["spmv", t.nnz]
+        got = spmv.spmv(t, x)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err or fq.launches["spmv", t.nnz] != before + 1:
+            raise AssertionError(f"spmv {name}: max_abs_err {err}")
+        out = torch.empty_like(got)
+        ms = graph_ms(lambda t=t, x=x, o=out: spmv.spmv(t, x, out=o), 10)
+        eager = cuda_ms(lambda t=t, x=x, o=out: spmv.spmv(t, x, out=o), 10)
+        bound = spmv_bound(t.nnz, t.n_out)
+        log(f"spmv {name} ({t.nnz} non-zeros -> {t.n_out}, "
+            f"{t.n_long} long rows in {t.n_chunks} chunks): {ms:.4f} ms "
+            f"in a CUDA graph ({eager:.4f} one by one), bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+            f"{ms / bound['bound_ms']:.2f}x, plain {p_ms:.2f} ms")
+        result[name] = dict(shape=[t.nnz, t.n_out], long_rows=t.n_long,
+                            chunks=t.n_chunks, ms=ms, eager_ms=eager,
+                            plain_ms=p_ms, max_abs_err=err, **bound)
+
+    eq_ry = rand_elems(gen, 2 * n, dev)
+    eq_rx = rand_elems(gen, n, dev)
+    ys = torch.empty((3, n, 8), dtype=torch.int32, device=dev)
+
+    def evaluation():
+        for name, y in zip("ABC", ys):
+            spmv.spmv(tables[f"{name} by_row"], eq_ry, out=y)
+        return fq.dot_mod(ys, eq_rx, dim=1)
+
+    ms = graph_ms(evaluation, 10)
+    bound = 3 * spmv_bound(n, n)["bound_ms"] + fq_bound(
+        "dot", 3 * n, (n,), n + 3)["bound_ms"]
+    polys = [types.SimpleNamespace(by_row=tables[f"{name} by_row"], vals=v)
+             for name, v in zip("ABC", vals)]
+    r = [(5 ** j * 1000003) % Q for j in range(2 * LOG_N + 1)]
+    SparseMatPolynomial.evaluate_tables(polys, r[:LOG_N], r[LOG_N:])
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        SparseMatPolynomial.evaluate_tables(polys, r[:LOG_N], r[LOG_N:])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(walls)[2]
+    log(f"spmv evaluation (3 K9 by row + K8 dot): {ms:.4f} ms in a CUDA "
+        f"graph, bound {bound:.4f} ms; evaluate_tables with its eq tables "
+        f"and fetch {wall:.3f} ms (host clock, median of 5)")
+    result["evaluation"] = dict(ms=ms, bound_ms=bound, wall_ms=wall)
     return result
 
 
@@ -1022,6 +1126,7 @@ def snark_main_path(dev, inst, vars_a, inputs_a) -> dict:
         f"encode: {encode_launches['fq_by_mode']}")
     if set(fq_modes) != set(FQ_PROVE_MODES):
         raise AssertionError(f"K7/K8 modes in the SNARK prove: {fq_modes}")
+    check_spmv_launches("SNARK", prove_launches)
     if min(prove_launches["row_msm"],
            prove_launches["fold_evals_by_comb"]["cubic_prod"],
            prove_launches["point_msm"], prove_launches["bullet_step"],
@@ -1093,6 +1198,17 @@ def snark_main_path(dev, inst, vars_a, inputs_a) -> dict:
                                       blob=blob)
 
 
+def check_spmv_launches(what: str, launches: dict) -> None:
+    """A prove's sparse products all on K9 (read_counts has already
+    raised on a call of its plain version, the int64 path, on the card)."""
+    got = launches["fq_by_mode"].get("spmv", 0)
+    log(f"K9 launches, 2^{LOG_N} {what} prove: {got} (expected "
+        f"{SPMV_PER_PROVE[what]}); spmv_plain on the card: "
+        f"{launches['plain_cuda_calls']['spmv_plain']}")
+    if got != SPMV_PER_PROVE[what]:
+        raise AssertionError(f"K9 launches in the {what} prove: {got}")
+
+
 def make_instance(dev, log_n: int):
     """The flagship instance, 2^log_n constraints and variables with 10
     inputs, from seed 1: (instance, vars, inputs, seconds)."""
@@ -1114,10 +1230,12 @@ def _plains():
     from spartan_tpu_torch.curve import row_msm as rm
     from spartan_tpu_torch.ff import bullet_kernel as bk
     from spartan_tpu_torch.ff import round_kernel as rk
+    from spartan_tpu_torch.ff import spmv
     from spartan_tpu_torch.transcript import device as dt
 
     return (rm.row_msm_plain, rk.fold_evals_plain, dt.strobe_step_plain,
-            dri.compress_plain, pm.point_msm_plain, bk.bullet_step_plain)
+            dri.compress_plain, pm.point_msm_plain, bk.bullet_step_plain,
+            spmv.spmv_plain)
 
 
 def reset_counts() -> None:
@@ -1214,6 +1332,7 @@ def nizk_main_path(dev, inst, vars_a, inputs_a, setup_s: float) -> dict:
            launches["point_msm"], launches["bullet_step"],
            launches["ristretto_compress"], launches["to_mont"]) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
+    check_spmv_launches("NIZK", launches)
 
     blob = ser.nizk_to_bytes(nizk)
     t0 = time.perf_counter()
@@ -2255,6 +2374,7 @@ def main() -> int:
     k6 = check_bullet_step(dev, gen)
     k7 = check_to_mont(dev, gen)
     k78 = check_fq_kernels(dev, gen)
+    k9 = check_spmv(dev, gen)
     check_no_fallback(dev, gen)
     rounds = bullet_round_times(dev)
     golden(dev)
@@ -2367,6 +2487,17 @@ def main() -> int:
              replaces=None, launches=summary["launches"]["fq_by_mode"],
              launches_by_path=by_path["fq_by_mode"], library_ms=None,
              cases=k78),
+        dict(name="fq_spmv", route="cuda",
+             source="spartan_tpu_torch/csrc/fq_spmv.cu",
+             replaces=None,
+             launches=summary["launches"]["fq_by_mode"].get("spmv", 0),
+             launches_by_path={
+                 k: v.get("spmv", 0)
+                 for k, v in by_path["fq_by_mode"].items()},
+             library_ms=None, shape=k9["A by_col"]["shape"],
+             ms=k9["A by_col"]["ms"], plain_ms=k9["A by_col"]["plain_ms"],
+             bound_ms=k9["A by_col"]["bound_ms"],
+             bound_by=k9["A by_col"]["bound_by"], max_abs_err=0, cases=k9),
     ]
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

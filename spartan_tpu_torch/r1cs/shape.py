@@ -1,12 +1,16 @@
 """R1CS shape and sparse-matrix products (reference src/r1cs.rs and the
 SpMV pieces of src/sparse_mlpoly.rs:330-504).
 
-Matrices are COO on the device: int64 row/col index vectors plus an
-``(nnz, 8)`` Montgomery value table.  SpMV and its transpose are
-gather -> batched field product -> ``index_add_`` of the 16-bit limbs
-into int64 accumulators (exact for up to 2^47 entries per output cell)
--> one wide modular reduction.  This stays a PyTorch operation, as it
-was an XLA one in the JAX package.
+A matrix keeps its COO entries on the host (numpy rows and columns, for
+the digest, Spark's encoding and ``is_sat``) and its ``(nnz, 8)``
+Montgomery values on the device.  Set-up lays it out twice more for the
+sparse product (``ff/spmv.py``): sorted by row (Az, Bz, Cz, and the
+evaluation at (rx, ry)) and by column (the eval tables).  On the card
+every product is one launch of kernel K9 (``csrc/fq_spmv.cu``), where
+the JAX package ran XLA's gather and scatter-add; on the CPU the plain
+version runs.  The evaluation (eval_sparse_polys) of an instance on the
+card is K9 by row against eq(ry), then one dot with eq(rx) (K8) and one
+fetch; an instance on the CPU evaluates on the host.
 """
 
 from __future__ import annotations
@@ -17,12 +21,13 @@ import numpy as np
 import torch
 
 from ..core.field import Q
-from ..ff import fq, limb
+from ..ff import fq, limb, spmv
 from ..poly import dense
 
 
 class SparseMatPolynomial:
-    """COO sparse multilinear matrix polynomial."""
+    """Sparse multilinear matrix polynomial: COO entries, and the tables
+    ``by_row`` and ``by_col`` of the sparse product (``ff/spmv.py``)."""
 
     def __init__(self, num_vars_x: int, num_vars_y: int,
                  rows: np.ndarray, cols: np.ndarray, vals_ints: list[int],
@@ -34,9 +39,11 @@ class SparseMatPolynomial:
         self._vals_ints = [v % Q for v in vals_ints]
         mont = fq.encode_ints(self._vals_ints)  # host Montgomery map
         self._vals_mont_bytes = mont.numpy().astype("<i4").tobytes()
-        self.rows = torch.from_numpy(self._rows_np).to(device)
-        self.cols = torch.from_numpy(self._cols_np).to(device)
-        self.vals = mont.to(device)  # (nnz, 8) Montgomery
+        self.vals = mont.to(device)  # (nnz, 8) Montgomery, COO order
+        self.by_row = spmv.SpmvTable(self._rows_np, self._cols_np,
+                                     self.vals, 1 << num_vars_x)
+        self.by_col = spmv.SpmvTable(self._cols_np, self._rows_np,
+                                     self.vals, 1 << num_vars_y)
 
     @staticmethod
     def from_entries(num_vars_x: int, num_vars_y: int,
@@ -67,23 +74,26 @@ class SparseMatPolynomial:
     def multiply_vec(self, num_rows: int, num_cols: int,
                      z: torch.Tensor) -> torch.Tensor:
         """Az: (num_rows, 8) Montgomery (sparse_mlpoly.rs:454-464)."""
-        assert z.shape[0] == num_cols
-        return _spmv(self.rows, self.cols, self.vals, z, num_rows)
+        assert z.shape[0] == num_cols and num_rows == self.by_row.n_out
+        return spmv.spmv(self.by_row, z)
 
     def compute_eval_table_sparse(self, rx: torch.Tensor, num_rows: int,
                                   num_cols: int) -> torch.Tensor:
         """M_evals[col] += rx[row] * val (sparse_mlpoly.rs:466-480)."""
-        assert rx.shape[0] == num_rows
-        return _spmv(self.cols, self.rows, self.vals, rx, num_cols)
+        assert rx.shape[0] == num_rows and num_cols == self.by_col.n_out
+        return spmv.spmv(self.by_col, rx)
 
     @staticmethod
     def multi_evaluate(polys: list["SparseMatPolynomial"], rx: list[int],
                        ry: list[int]) -> list[int]:
-        """The verifier's eval_sparse_polys (r1cs.rs:300-303), on the
-        host: native C++ Montgomery batch ops, or python ints without
-        the native library."""
+        """The verifier's eval_sparse_polys (r1cs.rs:300-303): on the card
+        for polynomials there (``evaluate_tables``), else on the host:
+        native C++ Montgomery batch ops, or python ints without the
+        native library."""
         from .. import native
 
+        if polys[0].vals.is_cuda:
+            return SparseMatPolynomial.evaluate_tables(polys, rx, ry)
         if native.available():
             eq_rx = native.fq_eq_evals_mont(rx)
             eq_ry = native.fq_eq_evals_mont(ry)
@@ -102,6 +112,20 @@ class SparseMatPolynomial:
             outs.append(total % Q)
         return outs
 
+    @staticmethod
+    def evaluate_tables(polys: list["SparseMatPolynomial"], rx: list[int],
+                        ry: list[int]) -> list[int]:
+        """eval_sparse_polys on the polynomials' device: y_M = M eq(ry),
+        one sparse product by row each (K9 on the card), then <eq(rx),
+        y_M> for all of them in one reduction (K8) and one fetch."""
+        dev = polys[0].vals.device
+        eq_rx, eq_ry = dense.eq_evals(rx, dev), dense.eq_evals(ry, dev)
+        ys = torch.empty((len(polys), eq_rx.shape[0], limb.NWORDS),
+                         dtype=torch.int32, device=dev)
+        for p, y in zip(polys, ys):
+            spmv.spmv(p.by_row, eq_ry, out=y)
+        return fq.decode_to_ints(fq.dot_mod(ys, eq_rx, dim=1))
+
 
 def _eq_evals_host_py(r: list[int]) -> list[int]:
     """eq(r, x) table with python ints (dense_mlpoly.rs:68-84 order)."""
@@ -114,15 +138,6 @@ def _eq_evals_host_py(r: list[int]) -> list[int]:
             nxt.append(hi)
         tab = nxt
     return tab
-
-
-def _spmv(out_idx: torch.Tensor, in_idx: torch.Tensor, vals: torch.Tensor,
-          z: torch.Tensor, out_size: int) -> torch.Tensor:
-    prod = fq.mul16(limb.unpack(vals), limb.unpack(z)[in_idx])
-    acc = torch.zeros((out_size, limb.NLIMBS), dtype=torch.int64,
-                      device=z.device)
-    acc.index_add_(0, out_idx, prod)
-    return fq.reduce_wide(acc)
 
 
 class R1CSShape:

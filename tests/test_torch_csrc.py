@@ -9,7 +9,8 @@ doubling and cached addition, the signed radix-16 recoding, the whole
 ladder, and the plain version against it bit for bit) and kernel K6's
 safegcd inverse and its divstep batches (64-bit and 32-bit), wide
 reduction and Montgomery exit
-(``csrc/bullet_step.cuh``) compiled for the host with g++ and held
+(``csrc/bullet_step.cuh``), and kernel K9's row body (``csrc/fq_spmv.cuh``)
+compiled for the host with g++ and held
 against python-int oracles, ``core/keccak.py`` and
 ``core/ristretto.encode``.
 
@@ -61,6 +62,7 @@ static inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z,
 #include "ristretto.cuh"
 #include "point_msm.cuh"
 #include "bullet_step.cuh"
+#include "fq_spmv.cuh"
 extern "C" {
 static void q_load(qfe& q, const uint32_t* p) {
   for (int k = 0; k < 4; k++) for (int i = 0; i < 8; i++) q.w[k][i] = p[8 * k + i];
@@ -150,6 +152,14 @@ void h_fq_eq_step2(uint32_t* lo, uint32_t* hi, const uint32_t* t,
 }
 void h_fq_acc_mul2(uint32_t* acc, const uint32_t* a, const uint32_t* w) {
   fq_acc_mul_n<2>(acc, (const uint32_t(*)[8])a, (const uint32_t(*)[8])w);
+}
+void h_fq_spmv_acc2(uint32_t* acc, const int32_t* idx, const uint32_t* val,
+                    const int32_t* perm, const uint32_t* x, long j0, long e,
+                    long step) {
+  fq_spmv_acc<2>(acc, idx, val, perm, x, j0, e, step);
+}
+void h_fq_spmv_finish(uint32_t* r, const uint32_t* acc, long n) {
+  fq_spmv_finish(r, acc, n);
 }
 }
 """
@@ -522,6 +532,52 @@ def test_fq_kernel_mode_bodies(lib, op):
                 lib.h_fq_acc_mul2(buf, _pair(*a), _pair(*w))
                 assert _val(buf) == acc + sum(
                     x * y * r_inv % Q for x, y in zip(a, w))
+
+
+@pytest.mark.parametrize("layout", ["identity", "indexed", "permuted"])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 33])
+def test_fq_spmv_row_body(lib, n, layout):
+    """K9's row body (``csrc/fq_spmv.cuh``): a row's n products, two side
+    by side and then one at a time, walked by one thread (step 1) and
+    split over a chunk block's threads (step 4, their accumulators
+    summed), the inputs and values read through null index arrays (the
+    identity), an input index, or an input index and a permutation of
+    the values, and the row's one reduction (a conditional subtraction
+    for up to two products): against python ints, with values and
+    inputs at 0, 1 and q - 1 and at random."""
+    p, i64 = ctypes.c_void_p, ctypes.c_long
+    lib.h_fq_spmv_acc2.argtypes = [p, p, p, p, p, i64, i64, i64]
+    lib.h_fq_spmv_finish.argtypes = [p, p, i64]
+    rng = random.Random(30 + n)
+    r_inv = pow(R, -1, Q)
+    xs = [0, 1, Q - 1] + [rng.randrange(Q) for _ in range(37)]
+    vals = [rng.choice([0, 1, Q - 1, rng.randrange(Q)]) for _ in range(n)]
+    idx = list(range(n))
+    if layout != "identity":
+        idx = [rng.randrange(len(xs)) for _ in range(n)]
+    at = list(range(n))
+    if layout == "permuted":
+        rng.shuffle(at)
+    want = sum(vals[a] * xs[i] * r_inv % Q for a, i in zip(at, idx))
+    vbuf = _buf(sum(v << (256 * j) for j, v in enumerate(vals)),
+                max(8 * n, 8))
+    xbuf = _buf(sum(x << (256 * j) for j, x in enumerate(xs)), 8 * len(xs))
+    ibuf = (ctypes.c_int32 * max(n, 1))(*idx) if layout != "identity" \
+        else None
+    pbuf = (ctypes.c_int32 * max(n, 1))(*at) if layout == "permuted" \
+        else None
+    acc = _buf(0, 9)
+    lib.h_fq_spmv_acc2(acc, ibuf, vbuf, pbuf, xbuf, 0, n, 1)
+    assert _val(acc) == want
+    out = _buf(0)
+    lib.h_fq_spmv_finish(out, acc, n)
+    assert _val(out) == want % Q
+    total = 0
+    for t in range(4):
+        acc = _buf(0, 9)
+        lib.h_fq_spmv_acc2(acc, ibuf, vbuf, pbuf, xbuf, t, n, 4)
+        total += _val(acc)
+    assert total == want
 
 
 @pytest.mark.parametrize("square", [False, True], ids=["product", "square"])

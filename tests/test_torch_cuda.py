@@ -279,15 +279,46 @@ def test_fq_sum_mod_kernel_vs_plain(dev, shape, dim):
         assert torch.equal(fq.sum_mod(v, 1), fq.sum_mod_plain(v, 1))
 
 
+def _guard_plains(monkeypatch):
+    """Every plain version of K7's, K8's and K9's functions raises on a
+    tensor on the card, so nothing there falls back to the int64 path."""
+    from spartan_tpu_torch.ff import fq, spmv
+    from spartan_tpu_torch.poly import dense
+
+    for mod, name in [(fq, n + "_plain") for n in (
+            "mul", "add", "sub", "to_mont", "from_mont", "eq_step",
+            "dot_mod", "sum_mod")] + [(dense, "eq_evals_plain"),
+                                      (spmv, "spmv_plain")]:
+        plain = getattr(mod, name)
+
+        def guarded(*args, _plain=plain, _name=name, **kw):
+            assert not any(isinstance(x, torch.Tensor) and x.is_cuda
+                           for x in args), f"{_name} on the card"
+            return _plain(*args, **kw)
+
+        monkeypatch.setattr(mod, name, guarded)
+
+
+def _launched(before):
+    """fq.launches since ``before``, summed by mode."""
+    from spartan_tpu_torch.ff import fq
+
+    out = {}
+    for key, v in fq.launches.items():
+        if v != before.get(key, 0):
+            out[key[0]] = out.get(key[0], 0) + v - before.get(key, 0)
+    return out
+
+
 def test_snark_2p10_on_the_card_equals_the_cpu(dev, monkeypatch):
     """A 2^10 SNARK proved on the card and on the CPU: the same bytes.
-    On the card every plain version of K7's and K8's functions raises,
-    so nothing there falls back to the int64 path, and every mode runs."""
+    On the card every plain version of K7's, K8's and K9's functions
+    raises, every mode runs, and K9 runs the prove's nine sparse
+    products (Az, Bz, Cz, the three eval tables, the evaluation's three)."""
     from spartan_tpu_torch import serialize as ser
     from spartan_tpu_torch.api import SNARK, Instance, SNARKGens
     from spartan_tpu_torch.core.merlin import Transcript
     from spartan_tpu_torch.ff import fq
-    from spartan_tpu_torch.poly import dense
 
     def prove(device):
         inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
@@ -299,24 +330,152 @@ def test_snark_2p10_on_the_card_equals_the_cpu(dev, monkeypatch):
         return ser.commitment_to_bytes(comm), ser.snark_to_bytes(snark)
 
     want = prove("cpu")
-    for mod, name in [(fq, n + "_plain") for n in (
-            "mul", "add", "sub", "to_mont", "from_mont", "eq_step",
-            "dot_mod", "sum_mod")] + [(dense, "eq_evals_plain")]:
-        plain = getattr(mod, name)
-
-        def guarded(*args, _plain=plain, _name=name, **kw):
-            assert not any(isinstance(x, torch.Tensor) and x.is_cuda
-                           for x in args), f"{_name} on the card"
-            return _plain(*args, **kw)
-
-        monkeypatch.setattr(mod, name, guarded)
+    _guard_plains(monkeypatch)
     before = dict(fq.launches)
     got = prove(dev)
-    used = {m for k, v in fq.launches.items() if v != before.get(k, 0)
-            for m in k[:1]}
+    used = _launched(before)
     assert got == want
-    assert used == {"to_mont", "mul", "add", "sub", "from_mont", "eq",
-                    "dot", "sum"}
+    assert set(used) == {"to_mont", "mul", "add", "sub", "from_mont", "eq",
+                         "dot", "sum", "spmv"}
+    assert used["spmv"] == 9
+
+
+def test_nizk_2p10_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """A 2^10 NIZK proved on the card and on the CPU: the same bytes, no
+    plain version run on the card, six K9 launches in the prove, and the
+    proof verified on the card (its evaluation by K9, three more)."""
+    from spartan_tpu_torch import serialize as ser
+    from spartan_tpu_torch.api import NIZK, Instance, NIZKGens
+    from spartan_tpu_torch.core.merlin import Transcript
+    from spartan_tpu_torch.ff import fq
+
+    def make(device):
+        inst, vars_a, inputs_a = Instance.produce_synthetic_r1cs(
+            1024, 1024, 10, seed=1012, device=device)
+        return inst, vars_a, inputs_a, NIZKGens(1024, 1024, 10)
+
+    inst, vars_a, inputs_a, gens = make("cpu")
+    want = ser.nizk_to_bytes(NIZK.prove(
+        inst, vars_a, inputs_a, gens, Transcript(b"cuda_2p10"),
+        _tape_seed=1013))
+    _guard_plains(monkeypatch)
+    inst, vars_a, inputs_a, gens = make(dev)
+    before = dict(fq.launches)
+    nizk = NIZK.prove(inst, vars_a, inputs_a, gens,
+                      Transcript(b"cuda_2p10"), _tape_seed=1013)
+    assert _launched(before)["spmv"] == 6
+    assert ser.nizk_to_bytes(nizk) == want
+    before = dict(fq.launches)
+    nizk.verify(inst, inputs_a, Transcript(b"cuda_2p10"), gens)
+    assert _launched(before)["spmv"] == 3
+
+
+def _circuit_matrix(mat):
+    """Rows and columns of A, B or C of the benchmark's 2^20 circuit
+    (``benchmark/circuit.py``: A's and B's columns drawn among the
+    earlier values, so early variables, the constant and the inputs
+    recur; C's the diagonal)."""
+    import numpy as np
+
+    from benchmark.circuit import Circuit
+
+    c = Circuit(1 << 20, 1 << 20, 10, 3141592653)
+    rows, cols, _ = c.matrices()["ABC".index(mat)]
+    return rows, np.asarray(cols)
+
+
+@pytest.mark.parametrize("orient", ["by_row", "by_col"])
+@pytest.mark.parametrize("mat", ["A", "B", "C"])
+def test_spmv_kernel_vs_plain_at_the_cells_shapes(dev, mat, orient):
+    """K9 against its plain version word for word on the benchmark
+    circuit's matrices: by row into 2^20 outputs from a 2^21 z, by column
+    into 2^21 outputs from a 2^20 eq table."""
+    from spartan_tpu_torch.ff import spmv
+
+    rows, cols = _circuit_matrix(mat)
+    n = 1 << 20
+    vals = _elems(n, 40 + "ABC".index(mat), dev)
+    if orient == "by_row":
+        t, x = spmv.SpmvTable(rows, cols, vals, n), _elems(2 * n, 43, dev)
+    else:
+        t, x = spmv.SpmvTable(cols, rows, vals, 2 * n), _elems(n, 44, dev)
+    got = spmv.spmv(t, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, spmv.spmv_plain(t, x))
+
+
+@pytest.mark.parametrize("values", ["random", "edges"])
+@pytest.mark.parametrize("orient", ["by_row", "by_col"])
+def test_spmv_kernel_skewed(dev, orient, values):
+    """K9 on a skewed matrix: one row and one column with 2^16 non-zeros
+    each (32 chunks of a long row), short rows of 1-3, and empty rows (the
+    upper half), against its plain version; "edges" takes every value and
+    input from 0, 1 and q - 1 (a long row of (q - 1)^2 products)."""
+    import numpy as np
+
+    from spartan_tpu_torch.ff import spmv
+
+    n, k = 1 << 18, 1 << 16
+    rng = np.random.default_rng(45)
+    short = np.repeat(np.arange(n // 2), rng.integers(1, 4, n // 2))
+    rows = np.concatenate([short, np.full(k, 5), rng.integers(0, n // 2, k)])
+    cols = np.concatenate([rng.integers(0, n, len(short)),
+                           rng.integers(0, n, k), np.full(k, 7)])
+    if orient == "by_col":
+        rows, cols = cols, rows
+    nnz = len(rows)
+    vals, x = _elems(nnz, 46, dev), _elems(n, 47, dev)
+    if values == "edges":  # the long row's and column's entries q - 1
+        edges = limb.ints_to_limbs(EDGES, dev)
+        vals = edges[torch.from_numpy(rng.integers(0, 3, nnz)).to(dev)]
+        vals[len(short):] = edges[2]
+        x = edges[torch.from_numpy(rng.integers(0, 3, n)).to(dev)]
+        x[5] = x[7] = edges[2]
+    t = spmv.SpmvTable(rows, cols, vals, n)
+    assert t.n_chunks >= k // spmv.LONG_CHUNK and t.n_long >= 1
+    got = spmv.spmv(t, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, spmv.spmv_plain(t, x))
+    if orient == "by_row":
+        assert not got[n // 2:].any()
+
+
+def test_evaluate_on_the_card_equals_the_host(dev):
+    """eval_sparse_polys of matrices on the card (two eq tables, K9 by
+    row against eq(ry), one K8 dot, one fetch) equals the host's (native
+    C++, ``native.fq_sparse_eval``) on the same entries: a 2^16 circuit
+    of the benchmark's form and a skewed matrix."""
+    import random
+
+    import numpy as np
+
+    from spartan_tpu_torch import native
+    from spartan_tpu_torch.ff import fq, spmv
+    from spartan_tpu_torch.r1cs.shape import SparseMatPolynomial
+
+    n = 1 << 16
+    rng = np.random.default_rng(48)
+    i = np.arange(n)
+    a_col = np.minimum((rng.random(n) * (i + 11)).astype(np.int64), i + 10)
+    mats = [(i, np.where(a_col < i, a_col, n + a_col - i)), (i, i),
+            (np.concatenate([i, np.full(4096, 3)]),
+             np.concatenate([rng.integers(0, 2 * n, n), np.full(4096, 9)]))]
+    pr = random.Random(49)
+    vals = [[pr.randrange(Q) for _ in range(len(r))] for r, _ in mats]
+    polys = {d: [SparseMatPolynomial(16, 17, r, c, v, d)
+                 for (r, c), v in zip(mats, vals)] for d in ("cpu", dev)}
+    rx = [pr.randrange(Q) for _ in range(16)]
+    ry = [pr.randrange(Q) for _ in range(17)]
+    before, calls = dict(fq.launches), spmv.spmv_plain.cuda_calls
+    got = SparseMatPolynomial.multi_evaluate(polys[dev], rx, ry)
+    assert _launched(before)["spmv"] == 3
+    assert spmv.spmv_plain.cuda_calls == calls
+    assert native.available()
+    eq_rx = native.fq_eq_evals_mont(rx)
+    eq_ry = native.fq_eq_evals_mont(ry)
+    assert got == [native.fq_sparse_eval(eq_rx, eq_ry, p._rows_np,
+                                         p._cols_np, p.vals_mont_bytes())
+                   for p in polys["cpu"]]
 
 
 @pytest.mark.parametrize("ntab,n", [(4, 8), (4, 64), (4, 4096), (4, 1 << 20),
